@@ -1,0 +1,434 @@
+"""The port's Hopper kernels: build, binding, wrappers and plain versions.
+
+Counterpart of drand_tpu/ops/pallas_field.py.  Four TPU kernels of the exact
+short-signature verification path have a hand-written CUDA C++ kernel
+(sources in ``csrc/``, target ``sm_90a``):
+
+  K1 pow_fixed         <- pallas_field._pow_call          (csrc/pow.cu)
+  K2 scalar_mul_fixed  <- pallas_field._ladder_fixed_call (csrc/ladder.cu, G1)
+  K3 miller_loop       <- pallas_field._miller_call       (csrc/miller.cu)
+  K4 final_exponentiation <- pallas_field._finalexp_call  (csrc/finalexp.cu)
+
+Each wrapper takes the plain engine's ``(..., 24)`` int64 Montgomery limbs.
+On a CPU tensor it runs the plain PyTorch version beside it (the loops of
+limbs.py, curve.py and pairing.py); on a CUDA tensor it launches the kernel
+and raises if the launch fails.  There is no fallback from one to the other.
+``LAUNCHES`` counts kernel launches per wrapper, ``SHAPES`` the same launches
+per (wrapper, static exponent or scalar, lanes); plain runs count in neither.
+
+Build: every ``csrc/*.cu`` compiles with its own ``nvcc -c`` (all started
+together), then one ``nvcc -shared`` links a plain-C shared library, loaded
+with ctypes.  It is built at first use into ``build/kernels/<hash>/`` at the
+repository root (git-ignored), keyed on a hash of the sources and flags.
+"""
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from functools import lru_cache
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import limbs as L
+from . import tower as T
+from .curve import G1
+from ..crypto.host.params import P, B2, X as BLS_X
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+LAUNCHES = {"pow_fixed": 0, "scalar_mul_fixed": 0, "miller_loop": 0,
+            "final_exponentiation": 0}
+SHAPES = collections.Counter()     # (wrapper, exponent/scalar/None, lanes)
+
+XLOOP_BITS = [int(c) for c in bin(-BLS_X)[3:]]     # |x| after the leading 1
+INV_EXP = P - 2
+
+# The constant bundle the pairing kernels read, row order of the JAX
+# package's pallas_field._const_entries (p raw, the rest Montgomery).
+CONST_NAMES = (["p", "one", "half", "beta", "b2_0", "b2_1"]
+               + [f"frob{j}_{i}_{c}" for j in (1, 2) for i in range(6)
+                  for c in (0, 1)])
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    SHAPES.clear()
+
+
+def _count(name: str, key, lanes: int):
+    LAUNCHES[name] += 1
+    SHAPES[(name, key, lanes)] += 1
+
+
+# ---------------------------------------------------------------------------
+# Build and binding
+# ---------------------------------------------------------------------------
+
+BUILD_INFO = {}          # seconds, directory, ptxas log of the loaded build
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set NVCC or CUDA_HOME)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def build_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    srcs, hdrs = _sources()
+    for f in srcs + hdrs:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library (cached by source hash).
+
+    Each source compiles in its own nvcc process, all started together,
+    with ptxas statistics (-Xptxas -v) kept in build.log beside the
+    library."""
+    out_dir = BUILD_ROOT / build_hash()
+    lib = out_dir / "libdrand_kernels.so"
+    if lib.exists():
+        BUILD_INFO.update(seconds=0.0, directory=str(out_dir), cached=True,
+                          log=(out_dir / "build.log").read_text()
+                          if (out_dir / "build.log").exists() else "")
+        return lib
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    tmp = out_dir.with_name(out_dir.name + f".tmp{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    srcs, _ = _sources()
+    procs = []
+    for src in srcs:
+        obj = tmp / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
+               str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, objs = [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        objs.append(str(obj))
+    link = subprocess.run(
+        [nvcc, "-shared", *NVCC_FLAGS, *objs, "-o", str(tmp / lib.name)],
+        capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    (tmp / "build.log").write_text("\n".join(log))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.replace(tmp, out_dir)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0,
+                      directory=str(out_dir), cached=False,
+                      log="\n".join(log))
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures (every pointer and the stream
+    as c_void_p); each returns its cudaGetLastError()."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.drand_pow.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_ladder_g1.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_miller.argtypes = [vp, vp, vp, vp, i32, i64, vp]
+    lib.drand_finalexp.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
+    for fn in (lib.drand_pow, lib.drand_ladder_g1, lib.drand_miller,
+               lib.drand_finalexp):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _lib():
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            _LIB = bind(ctypes.CDLL(str(build())))
+        return _LIB
+
+
+def _check(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+
+
+def _on_card(t) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor, raise otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# Layout: (..., 24) int64 16-bit limbs <-> (coords, 12, B) int32 words
+# ---------------------------------------------------------------------------
+
+def to_words(xs):
+    """Same-shape limb tensors -> one contiguous (len(xs), 12, B) int32
+    tensor of 32-bit words (bit patterns), lane-minor."""
+    x = torch.stack([t.reshape(-1, L.NLIMB) for t in xs])    # (nc, B, 24)
+    w = x[..., 0::2] | (x[..., 1::2] << 16)                   # < 2^32
+    w = torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
+    return w.transpose(1, 2).contiguous()
+
+
+def from_words(w, shape):
+    """(nc, 12, B) int32 words -> list of nc limb tensors of `shape`+(24,)."""
+    v = (w.to(torch.int64) & 0xFFFFFFFF).transpose(1, 2)       # (nc, B, 12)
+    limbs = torch.stack([v & L.MASK, v >> 16], dim=-1)
+    limbs = limbs.reshape(v.shape[0], v.shape[1], L.NLIMB)
+    return [limbs[i].reshape(tuple(shape) + (L.NLIMB,))
+            for i in range(v.shape[0])]
+
+
+@lru_cache(maxsize=None)
+def bits_tensor(bits: tuple, device: str) -> torch.Tensor:
+    return torch.tensor(list(bits), dtype=torch.int32, device=device)
+
+
+def const_rows():
+    """(30, 24) int64 limbs of the constant bundle, CONST_NAMES order."""
+    from ..crypto.host import field as HF
+    mont = lambda x: L.int_to_limbs(x * L.R_MONT % P)
+    rows = [L.int_to_limbs(P), mont(1), mont((P + 1) // 2),
+            mont(pow(2, (P - 1) // 3, P)), mont(B2[0]), mont(B2[1])]
+    for j in (1, 2):
+        for c in HF.FROB[j]:
+            rows += [mont(c[0]), mont(c[1])]
+    return torch.from_numpy(np.stack(rows))
+
+
+@lru_cache(maxsize=None)
+def const_bundle(device: str) -> torch.Tensor:
+    return to_words([const_rows().to(device)])[0].T.contiguous()  # (30, 12)
+
+
+# ---------------------------------------------------------------------------
+# K1: Fp pow by a fixed exponent
+# ---------------------------------------------------------------------------
+
+def pow_fixed_plain(a, e: int):
+    """Square-and-multiply MSB-first from 1; zero bits skip the multiply
+    (limbs.pow_fixed's loop, pallas_field._pow_math)."""
+    acc = L.ones_like(a)
+    for bit in L.exp_bits(e):
+        acc = L.mont_sqr(acc)
+        if bit:
+            acc = L.mont_mul(acc, a)
+    return acc
+
+
+def pow_fixed(a, e: int):
+    """a^e for a static exponent e >= 1 (Montgomery limbs in and out)."""
+    if not _on_card(a):
+        return pow_fixed_plain(a, e)
+    shape = a.shape[:-1]
+    x = to_words([a])
+    out = torch.empty_like(x)
+    bits = bits_tensor(tuple(L.exp_bits(e)), str(a.device))
+    _check(_lib().drand_pow(x.data_ptr(), out.data_ptr(), bits.data_ptr(),
+                            bits.numel(), x.shape[-1], _stream(a.device)),
+           "pow_fixed")
+    _count("pow_fixed", e, x.shape[-1])
+    return from_words(out, shape)[0]
+
+
+# ---------------------------------------------------------------------------
+# K2: G1 scalar multiplication by a fixed scalar
+# ---------------------------------------------------------------------------
+
+def scalar_mul_fixed_plain(p, k: int):
+    """Double-and-add MSB-first from infinity; zero bits skip the add
+    (pallas_field._ladder_fixed_math over curve.DevCurve)."""
+    acc = G1.infinity_like(p[0])
+    for bit in L.exp_bits(k):
+        acc = G1.double(acc)
+        if bit:
+            acc = G1.add(acc, p)
+    return acc
+
+
+def scalar_mul_fixed(p, k: int):
+    """k*P on G1 for a static k >= 1 (Jacobian Montgomery limbs)."""
+    assert k >= 1
+    if not _on_card(p[0]):
+        return scalar_mul_fixed_plain(p, k)
+    shape = torch.broadcast_shapes(*(c.shape for c in p))[:-1]
+    x = to_words([c.expand(shape + (L.NLIMB,)) for c in p])
+    out = torch.empty_like(x)
+    bits = bits_tensor(tuple(L.exp_bits(k)), str(p[0].device))
+    _check(_lib().drand_ladder_g1(x.data_ptr(), out.data_ptr(),
+                                  bits.data_ptr(), bits.numel(), x.shape[-1],
+                                  _stream(p[0].device)),
+           "scalar_mul_fixed")
+    _count("scalar_mul_fixed", k, x.shape[-1])
+    return tuple(from_words(out, shape))
+
+
+# ---------------------------------------------------------------------------
+# K3: Miller loop
+# ---------------------------------------------------------------------------
+
+def _fp2_triple(a):
+    return T.fp2_add(T.fp2_add(a, a), a)
+
+
+def dbl_step(Rp):
+    """Doubling step: new R and line coefficients (ell0, ell_px, ell_py)."""
+    Rx, Ry, Rz = Rp
+    dev = Rx[0].device
+    b2 = (L.mont_const(B2[0], dev), L.mont_const(B2[1], dev))
+    s1 = T.fp2_mul_many([(Ry, Ry), (Rz, Rz), (T.fp2_add(Ry, Rz),
+                                              T.fp2_add(Ry, Rz)),
+                         (Rx, Rx), (Rx, Ry)])
+    t0, t1, u, v, m = s1
+    t2 = _fp2_triple(T.fp2_mul(t1, b2))
+    t3 = _fp2_triple(t2)
+    t4 = T.fp2_sub(T.fp2_sub(u, t1), t0)            # 2 Ry Rz
+    ell = (T.fp2_sub(t2, t0), _fp2_triple(v), T.fp2_neg(t4))
+    half = L.mont_const((P + 1) // 2, dev)
+    s, d = T.fp2_add(t0, t3), T.fp2_sub(t0, t3)
+    hs = L.mul_many([(s[0], half), (s[1], half), (d[0], half), (d[1], half)])
+    hh, g = (hs[0], hs[1]), (hs[2], hs[3])
+    s3 = T.fp2_mul_many([(hh, hh), (t2, t2), (g, m), (t0, t4)])
+    return (s3[2], T.fp2_sub(s3[0], _fp2_triple(s3[1])), s3[3]), ell
+
+
+def add_step(Rp, Q):
+    """Mixed addition step with affine Q; returns new R and line coeffs."""
+    Rx, Ry, Rz = Rp
+    Qx, Qy = Q
+    s1 = T.fp2_mul_many([(Qy, Rz), (Qx, Rz)])
+    t0 = T.fp2_sub(Ry, s1[0])
+    t1 = T.fp2_sub(Rx, s1[1])
+    s2 = T.fp2_mul_many([(t0, Qx), (t1, Qy), (t1, t1), (t0, t0)])
+    ell = (T.fp2_sub(s2[0], s2[1]), T.fp2_neg(t0), t1)
+    t2 = s2[2]
+    t3, t4, t0sqRz = T.fp2_mul_many([(t2, t1), (t2, Rx), (s2[3], Rz)])
+    t5 = T.fp2_add(T.fp2_sub(t3, T.fp2_add(t4, t4)), t0sqRz)
+    s4 = T.fp2_mul_many([(t1, t5), (T.fp2_sub(t4, t5), t0), (t3, Ry),
+                         (Rz, t3)])
+    return (s4[0], T.fp2_sub(s4[1], s4[2]), s4[3]), ell
+
+
+def apply_line(f, ell, px, py):
+    """f *= line, the line's x/y coefficients scaled by P's affine coords."""
+    o1 = T.fp2_mul_fp(ell[1], px)
+    o4 = T.fp2_mul_fp(ell[2], py)
+    z = T.fp2_zeros_like(px)
+    return T.fp12_mul(f, ((ell[0], o1, z), (z, o4, z)))
+
+
+def miller_loop_plain(px, py, q2):
+    """f_{|x|,Q}(P), conjugated (pairing._miller_math's loop)."""
+    f = T.fp12_ones_like(px)
+    Rp = (q2[0], q2[1], T.fp2_ones_like(px))
+    for bit in XLOOP_BITS:
+        f = T.fp12_sqr(f)
+        Rp, ell = dbl_step(Rp)
+        f = apply_line(f, ell, px, py)
+        if bit:
+            Rp, ell = add_step(Rp, q2)
+            f = apply_line(f, ell, px, py)
+    return T.fp12_conj(f)
+
+
+def miller_loop(px, py, q2):
+    """Optimal-ate Miller loop on affine P (Fp) and Q (Fp2), batched."""
+    if not _on_card(px):
+        return miller_loop_plain(px, py, q2)
+    ins = [px, py, q2[0][0], q2[0][1], q2[1][0], q2[1][1]]
+    shape = torch.broadcast_shapes(*(c.shape for c in ins))[:-1]
+    x = to_words([c.expand(shape + (L.NLIMB,)) for c in ins])
+    n = x.shape[-1]
+    out = torch.empty((12, 12, n), dtype=torch.int32, device=px.device)
+    dev = str(px.device)
+    xbits = bits_tensor(tuple(XLOOP_BITS), dev)
+    _check(_lib().drand_miller(x.data_ptr(), out.data_ptr(),
+                               const_bundle(dev).data_ptr(), xbits.data_ptr(),
+                               xbits.numel(), n, _stream(px.device)),
+           "miller_loop")
+    _count("miller_loop", None, n)
+    return T.fp12_pack(from_words(out, shape))
+
+
+# ---------------------------------------------------------------------------
+# K4: final exponentiation
+# ---------------------------------------------------------------------------
+
+def _pow_x_plain(g):
+    acc = g
+    for bit in XLOOP_BITS:
+        acc = T.fp12_sqr(acc)
+        if bit:
+            acc = T.fp12_mul(acc, g)
+    return T.fp12_conj(acc)
+
+
+def final_exponentiation_plain(f):
+    """pallas_field._finalexp_math, step for step; its Fp inverse is the
+    plain p-2 chain."""
+    inv = lambda x: pow_fixed_plain(x, INV_EXP)
+    f = T.fp12_mul(T.fp12_conj(f), T.fp12_inv(f, inv=inv))
+    f = T.fp12_mul(T.fp12_frobenius(f, 2), f)
+    e1 = T.fp12_mul(_pow_x_plain(f), T.fp12_conj(f))
+    e1 = T.fp12_mul(_pow_x_plain(e1), T.fp12_conj(e1))
+    e2 = T.fp12_mul(_pow_x_plain(e1), T.fp12_frobenius(e1, 1))
+    e3 = T.fp12_mul(T.fp12_mul(_pow_x_plain(_pow_x_plain(e2)),
+                               T.fp12_frobenius(e2, 2)), T.fp12_conj(e2))
+    f3 = T.fp12_mul(T.fp12_sqr(f), f)
+    return T.fp12_mul(e3, f3)
+
+
+def final_exponentiation(f):
+    """f^((p^12-1)/r) (times 3 in the hard part), batched."""
+    leaves = T.fp12_leaves(f)
+    if not _on_card(leaves[0]):
+        return final_exponentiation_plain(f)
+    shape = torch.broadcast_shapes(*(c.shape for c in leaves))[:-1]
+    x = to_words([c.expand(shape + (L.NLIMB,)) for c in leaves])
+    n = x.shape[-1]
+    out = torch.empty_like(x)
+    dev = str(leaves[0].device)
+    xbits = bits_tensor(tuple(XLOOP_BITS), dev)
+    invbits = bits_tensor(tuple(L.exp_bits(INV_EXP)), dev)
+    _check(_lib().drand_finalexp(x.data_ptr(), out.data_ptr(),
+                                 const_bundle(dev).data_ptr(),
+                                 xbits.data_ptr(), xbits.numel(),
+                                 invbits.data_ptr(), invbits.numel(), n,
+                                 _stream(leaves[0].device)),
+           "final_exponentiation")
+    _count("final_exponentiation", None, n)
+    return T.fp12_pack(from_words(out, shape))
