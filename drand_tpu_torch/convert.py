@@ -65,6 +65,14 @@ def encoding(enc, device="cpu"):
             limbs_from_numpy(u0, device), limbs_from_numpy(u1, device))
 
 
+def rlc_bits(planes, device="cpu"):
+    """The JAX package's RLC bit planes in split form (``_rlc_scalars(n,
+    pad, split=2)``: two (64, pad) uint32 arrays, MSB first) -> the int32
+    planes the port's ``_rlc_run_g1sig(..., bits=)`` takes."""
+    return tuple(torch.from_numpy(np.asarray(b).astype(np.int32)).to(device)
+                 for b in planes)
+
+
 def const_bundle(entries, device="cpu") -> torch.Tensor:
     """The JAX kernels' field-constant bundle (pallas_field._const_entries:
     a list of (name, (24,) limbs)) -> a (K, 24) int64 tensor in the row

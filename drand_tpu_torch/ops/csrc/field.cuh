@@ -558,6 +558,78 @@ DNI void g1_add(G1J& r, const G1J& p, const G1J& q) {
   }
 }
 
+struct G1A { Fp x, y; };  // affine, never infinity
+
+// Complete mixed addition p + q, q affine (DevCurve.add_mixed): Z2 = 1
+// drops 5 of the complete add's 23 products.  Precedence of the JAX
+// selections: an infinite accumulator gives (x2, y2, 1), then P == -Q
+// gives infinity, then P == Q the double.
+DNI void g1_add_mixed(G1J& r, const G1J& p, const G1A& q) {
+  Fp Z1Z1, dA, dB, dt, XB, U2, t2, dC, dU, dD, dE, S2, dFv, H, HH, rr, dX3;
+  Fp I, dY3a, dC2, dC4, dY3, dZ3, J, V, RR, Z3, X3, Y3a, S1J, Y3, tmp;
+  fp_sqr(Z1Z1, p.Z);
+  fp_sqr(dA, p.X);
+  fp_sqr(dB, p.Y);
+  fp_mul(dt, p.Y, p.Z);
+  fp_add(XB, p.X, dB);
+  fp_mul(U2, q.x, Z1Z1);
+  fp_mul(t2, p.Z, Z1Z1);
+  fp_sqr(dC, dB);
+  fp_sqr(dU, XB);
+  fp_sub(dD, dU, dA);
+  fp_sub(dD, dD, dC);
+  fp_add(dD, dD, dD);
+  fp_add(dE, dA, dA);
+  fp_add(dE, dE, dA);
+  fp_mul(S2, q.y, t2);
+  fp_sqr(dFv, dE);
+  fp_sub(H, U2, p.X);
+  fp_add(HH, H, H);
+  fp_sub(rr, S2, p.Y);
+  fp_add(rr, rr, rr);
+  fp_add(tmp, dD, dD);
+  fp_sub(dX3, dFv, tmp);
+  fp_sqr(I, HH);
+  fp_sub(tmp, dD, dX3);
+  fp_mul(dY3a, dE, tmp);
+  fp_add(dC2, dC, dC);
+  fp_add(dC4, dC2, dC2);
+  fp_add(tmp, dC4, dC4);
+  fp_sub(dY3, dY3a, tmp);
+  fp_add(dZ3, dt, dt);
+  fp_mul(J, H, I);
+  fp_mul(V, p.X, I);
+  fp_sqr(RR, rr);
+  fp_mul(Z3, p.Z, HH);
+  fp_sub(X3, RR, J);
+  fp_add(tmp, V, V);
+  fp_sub(X3, X3, tmp);
+  fp_sub(tmp, V, X3);
+  fp_mul(Y3a, rr, tmp);
+  fp_mul(S1J, p.Y, J);
+  fp_add(tmp, S1J, S1J);
+  fp_sub(Y3, Y3a, tmp);
+
+  const bool inf1 = fp_is_zero(p.Z);
+  const bool same_x = fp_eq(U2, p.X) && !inf1;
+  const bool same_y = fp_eq(S2, p.Y);
+  if (inf1) {
+    r.X = q.x;
+    r.Y = q.y;
+    fp_one(r.Z);
+  } else if (same_x && !same_y) {
+    g1_infinity(r);
+  } else if (same_x && same_y) {
+    r.X = dX3;
+    r.Y = dY3;
+    r.Z = dZ3;
+  } else {
+    r.X = X3;
+    r.Y = Y3;
+    r.Z = Z3;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Lane I/O: structure-of-arrays, word w of coordinate c of lane b at
 // (c * 12 + w) * B + b, so neighbouring threads read neighbouring words.

@@ -1,20 +1,24 @@
 """The port's Hopper kernels: build, binding, wrappers and plain versions.
 
-Counterpart of drand_tpu/ops/pallas_field.py.  Four TPU kernels of the exact
-short-signature verification path have a hand-written CUDA C++ kernel
-(sources in ``csrc/``, target ``sm_90a``):
+Counterpart of drand_tpu/ops/pallas_field.py.  Six TPU kernels of the
+short-signature verification path (the RLC pass and the exact pass) have a
+hand-written CUDA C++ kernel (sources in ``csrc/``, target ``sm_90a``):
 
   K1 pow_fixed         <- pallas_field._pow_call          (csrc/pow.cu)
   K2 scalar_mul_fixed  <- pallas_field._ladder_fixed_call (csrc/ladder.cu, G1)
   K3 miller_loop       <- pallas_field._miller_call       (csrc/miller.cu)
   K4 final_exponentiation <- pallas_field._finalexp_call  (csrc/finalexp.cu)
+  K7 sum_tiles         <- pallas_field._sum_call          (csrc/sum.cu, G1)
+  K8 scalar_mul_glv_mixed <- pallas_field._ladder_glv_mixed_call
+                                                          (csrc/glv.cu, G1)
 
 Each wrapper takes the plain engine's ``(..., 24)`` int64 Montgomery limbs.
 On a CPU tensor it runs the plain PyTorch version beside it (the loops of
 limbs.py, curve.py and pairing.py); on a CUDA tensor it launches the kernel
 and raises if the launch fails.  There is no fallback from one to the other.
 ``LAUNCHES`` counts kernel launches per wrapper, ``SHAPES`` the same launches
-per (wrapper, static exponent or scalar, lanes); plain runs count in neither.
+per (wrapper, static exponent, scalar or ladder bit count, lanes); plain runs
+count in neither.
 
 Build: every ``csrc/*.cu`` compiles with its own ``nvcc -c`` (all started
 together), then one ``nvcc -shared`` links a plain-C shared library, loaded
@@ -47,8 +51,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"pow_fixed": 0, "scalar_mul_fixed": 0, "miller_loop": 0,
-            "final_exponentiation": 0}
-SHAPES = collections.Counter()     # (wrapper, exponent/scalar/None, lanes)
+            "final_exponentiation": 0, "sum_tiles": 0,
+            "scalar_mul_glv_mixed": 0}
+# (wrapper, exponent / scalar / ladder bits / None, lanes)
+SHAPES = collections.Counter()
+
+TILE = 256          # lanes one K7 block reduces (pallas_field.TILE)
 
 XLOOP_BITS = [int(c) for c in bin(-BLS_X)[3:]]     # |x| after the leading 1
 INV_EXP = P - 2
@@ -159,8 +167,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.drand_ladder_g1.argtypes = [vp, vp, vp, i32, i64, vp]
     lib.drand_miller.argtypes = [vp, vp, vp, vp, i32, i64, vp]
     lib.drand_finalexp.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
+    lib.drand_sum_g1.argtypes = [vp, vp, i64, vp]
+    lib.drand_glv_g1.argtypes = [vp, vp, vp, i32, i64, vp]
     for fn in (lib.drand_pow, lib.drand_ladder_g1, lib.drand_miller,
-               lib.drand_finalexp):
+               lib.drand_finalexp, lib.drand_sum_g1, lib.drand_glv_g1):
         fn.restype = ctypes.c_int
     return lib
 
@@ -432,3 +442,107 @@ def final_exponentiation(f):
            "final_exponentiation")
     _count("final_exponentiation", None, n)
     return T.fp12_pack(from_words(out, shape))
+
+
+# ---------------------------------------------------------------------------
+# K7: per-tile point sum
+# ---------------------------------------------------------------------------
+
+def sum_tiles_plain(p):
+    """Each TILE-lane tile reduced to one point by halving levels
+    sh = TILE/2, ..., 1 (lane i of the tile += lane i + sh).  Lane 0 of
+    pallas_field._sum_tile_math's rotate-and-add reads only lanes i + sh
+    < 2 sh, so it is this same association of complete adds."""
+    pts = tuple(c.reshape(-1, TILE, L.NLIMB) for c in p)
+    sh = TILE // 2
+    while sh >= 1:
+        pts = G1.add(tuple(c[:, :sh] for c in pts),
+                     tuple(c[:, sh:2 * sh] for c in pts))
+        sh //= 2
+    return tuple(c[:, 0] for c in pts)
+
+
+def sum_tiles(p):
+    """G1 Jacobian points (B, 24), B a multiple of TILE -> the sum of each
+    tile, (B / TILE, 24) per coordinate."""
+    if p[0].shape[0] % TILE:
+        raise ValueError(f"sum_tiles needs a multiple of {TILE} lanes, "
+                         f"got {p[0].shape[0]}")
+    if not _on_card(p[0]):
+        return sum_tiles_plain(p)
+    x = to_words(p)
+    n = x.shape[-1]
+    out = torch.empty((3, 12, n // TILE), dtype=torch.int32, device=x.device)
+    _check(_lib().drand_sum_g1(x.data_ptr(), out.data_ptr(), n,
+                               _stream(x.device)), "sum_tiles")
+    _count("sum_tiles", None, n)
+    return tuple(from_words(out, (n // TILE,)))
+
+
+def _pad_lanes(p, lanes: int):
+    """Zero-pad a point batch to `lanes` lanes; an all-zero lane has Z = 0
+    and reads as infinity."""
+    n = p[0].shape[0]
+    if n == lanes:
+        return p
+    return tuple(torch.cat([c, c.new_zeros((lanes - n, L.NLIMB))], 0)
+                 for c in p)
+
+
+def sum_points(p):
+    """Sum a G1 point batch over its leading axis (pallas_field.sum_points).
+
+    Each K7 launch reduces every TILE-lane tile to one point; the per-tile
+    partials, zero-padded, are the lanes of the next launch until one tile
+    remains.  Two to four partials are folded in order with complete adds,
+    as the JAX package folds them in XLA.  8192 lanes: two launches."""
+    n = p[0].shape[0]
+    pts = _pad_lanes(p, max(TILE, -(-n // TILE) * TILE))
+    while True:
+        part = sum_tiles(pts)
+        ntiles = part[0].shape[0]
+        if ntiles == 1:
+            return tuple(c[0] for c in part)
+        if ntiles <= 4:
+            acc = tuple(c[0] for c in part)
+            for i in range(1, ntiles):
+                acc = G1.add(acc, tuple(c[i] for c in part))
+            return acc
+        pts = _pad_lanes(part, -(-ntiles // TILE) * TILE)
+
+
+# ---------------------------------------------------------------------------
+# K8: GLV joint ladder over affine tables
+# ---------------------------------------------------------------------------
+
+def scalar_mul_glv_mixed_plain(pt, phi, p3, bits0, bits1):
+    """[k0]P + [k1]phi(P) from the affine tables {P, phi(P), P + phi(P)}:
+    from infinity, double every step, then mixed-add the entry the bit
+    pair selects where b0 | b1 (pallas_field._ladder_glv_mixed_math)."""
+    sel = lambda c, a, b: tuple(L.select(c, x, y) for x, y in zip(a, b))
+    acc = G1.infinity_like(pt[0])
+    for i in range(bits0.shape[0]):
+        acc = G1.double(acc)
+        b0, b1 = bits0[i] == 1, bits1[i] == 1
+        t = sel(b0, sel(b1, p3, pt), sel(b1, phi, pt))
+        acc = G1.select(b0 | b1, G1.add_mixed(acc, t), acc)
+    return acc
+
+
+def scalar_mul_glv_mixed(pt, phi, p3, bits0, bits1):
+    """Joint GLV ladder: affine tables (x, y) of (B, 24) limbs and MSB-first
+    bit planes (nbits, B) -> a Jacobian point per lane."""
+    if not _on_card(pt[0]):
+        return scalar_mul_glv_mixed_plain(pt, phi, p3, bits0, bits1)
+    shape = pt[0].shape[:-1]
+    x = to_words([*pt, *phi, *p3])
+    n = x.shape[-1]
+    nbits = bits0.shape[0]
+    bits = torch.stack([bits0.reshape(nbits, n), bits1.reshape(nbits, n)]
+                       ).to(device=x.device, dtype=torch.int32).contiguous()
+    out = torch.empty((3, 12, n), dtype=torch.int32, device=x.device)
+    _check(_lib().drand_glv_g1(x.data_ptr(), bits.data_ptr(), out.data_ptr(),
+                               nbits, n, _stream(x.device)),
+           "scalar_mul_glv_mixed")
+    _count("scalar_mul_glv_mixed", nbits, n)
+    return tuple(from_words(out, shape))

@@ -126,6 +126,81 @@ def test_final_exponentiation_kernel_matches_plain(kernel_path, fp12_inputs):
           T.fp12_leaves(K.final_exponentiation_plain(f)))
 
 
+def _sum_input(n):
+    """n Jacobian lanes: members, an outsider, infinity, and a member
+    twice and negated (the doubling and P == -Q branches of the add)."""
+    x, y, z = _points()
+    idx = [RNG.randrange(6) for _ in range(n)]
+    pts = tuple(c[idx] for c in (x, y, z))
+    neg = DC.G1.neg(pts)
+    pts = tuple(c.clone() for c in pts)
+    for c, d in zip(pts, neg):                 # lane 1 = -lane 0
+        c[1] = d[0]
+    return pts
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_sum_kernel_matches_plain(kernel_path, n):
+    pts = _sum_input(n)
+    got = K.sum_tiles(pts)
+    assert kernel_path["sum_tiles"] == 1
+    assert K.SHAPES == {("sum_tiles", None, n): 1}
+    _same(got, K.sum_tiles_plain(pts))
+    assert got[0].shape == (n // K.TILE, 24)
+
+
+def test_sum_points_kernel_path_matches_plain(kernel_path, monkeypatch):
+    """1280 lanes: one launch over 5 tiles, one over the 5 partials padded
+    to a tile; 3 lanes: padded to one tile."""
+    for n, shapes in ((1280, {("sum_tiles", None, 1280): 1,
+                              ("sum_tiles", None, 256): 1}),
+                      (3, {("sum_tiles", None, 256): 1})):
+        pts = _sum_input(n)
+        K.reset_launches()
+        got = K.sum_points(pts)
+        assert dict(K.SHAPES) == shapes
+        monkeypatch.setattr(K, "_on_card", lambda t: False)
+        _same(got, K.sum_points(pts))
+        monkeypatch.setattr(K, "_on_card", lambda t: True)
+
+
+def glv_tables():
+    """Affine tables of 4 lanes and bits that reach every branch of the
+    mixed add: lane 0 random; lane 1 P3 = 2P, so the step that doubles P
+    and adds P3 meets P == Q; lane 2 P3 = -2P (P == -Q); lane 3 no bits."""
+    members = [HG1.mul(HG1.gen, RNG.randrange(1, R)) for _ in range(4)]
+    pt = members
+    beta = pow(2, (P - 1) // 3, P)
+    phi = [(beta * p[0] % P, p[1]) for p in pt]
+    two1, two2 = HG1.mul(pt[1], 2), HG1.mul(pt[2], 2)
+    p3 = [HG1.add(pt[0], phi[0]), two1, (two2[0], P - two2[1]),
+          HG1.add(pt[3], phi[3])]
+    enc = lambda pts: (L.encode_mont([p[0] for p in pts]),
+                       L.encode_mont([p[1] for p in pts]))
+    nbits = 64
+    b0 = torch.tensor([[RNG.randrange(2) for _ in range(4)]
+                       for _ in range(nbits)], dtype=torch.int32)
+    b1 = torch.tensor([[RNG.randrange(2) for _ in range(4)]
+                       for _ in range(nbits)], dtype=torch.int32)
+    for lane in (1, 2):                         # (1, 0) then (1, 1)
+        b0[:2, lane] = 1
+        b1[:2, lane] = torch.tensor([0, 1])
+    b0[2:, 2] = 0                               # lane 2 stays at infinity
+    b1[2:, 2] = 0
+    b0[:, 3] = 0
+    b1[:, 3] = 0
+    return enc(pt), enc(phi), enc(p3), b0, b1
+
+
+def test_glv_kernel_matches_plain(kernel_path):
+    pt, phi, p3, b0, b1 = glv_tables()
+    got = K.scalar_mul_glv_mixed(pt, phi, p3, b0, b1)
+    assert kernel_path["scalar_mul_glv_mixed"] == 1
+    assert K.SHAPES == {("scalar_mul_glv_mixed", 64, 4): 1}
+    _same(got, K.scalar_mul_glv_mixed_plain(pt, phi, p3, b0, b1))
+    assert DC.G1.is_infinity(got).tolist() == [False, False, True, True]
+
+
 def test_word_layout_round_trip():
     x = _rand_fp(7).reshape(7, 1, 24)
     w = K.to_words([x, x.flip(0)])
