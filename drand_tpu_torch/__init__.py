@@ -10,7 +10,8 @@ of it and never imports jax.  Layout mirrors the JAX package:
   crypto/host/...
       the port's own copies of the host constants and big-int helpers
   crypto/schemes.py, crypto/batch.py
-      the short-signature scheme and its batched verifier
+      the three beacon schemes (pedersen-bls-chained, pedersen-bls-unchained,
+      bls-unchained-on-g1) and their batched verifier
   convert.py
       moves state between the JAX package and the port (tests)
 

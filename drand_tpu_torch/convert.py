@@ -30,7 +30,9 @@ def limbs_to_numpy(t) -> np.ndarray:
 
 
 def tree_from_numpy(tree, device="cpu"):
-    """Nested tuples of limb arrays -> the same nesting of tensors."""
+    """Nested tuples of limb arrays -> the same nesting of tensors: an Fp2
+    element (c0, c1), a G2 affine point ((x0, x1), (y0, y1)) or Jacobian
+    point ((X0, X1), (Y0, Y1), (Z0, Z1)), a G1 point (X, Y, Z)."""
     if isinstance(tree, (tuple, list)):
         return tuple(tree_from_numpy(t, device) for t in tree)
     return limbs_from_numpy(tree, device)
@@ -50,25 +52,28 @@ def canonical_ints(t) -> list:
 
 
 def verifier_state(jax_verifier, device="cpu") -> dict:
-    """A JAX BatchBeaconVerifier's key state (G1-signature scheme) as port
-    tensors: the public key's and -g2's affine Montgomery coordinates."""
+    """A JAX BatchBeaconVerifier's key state as port tensors: the public
+    key's and the fixed generator's (-g2 for G1 signatures, -g1 for G2
+    signatures) affine Montgomery coordinates."""
     return {"pk_aff": tree_from_numpy(jax_verifier.pk_aff, device),
             "fixed_aff": tree_from_numpy(jax_verifier.fixed_aff, device)}
 
 
 def encoding(enc, device="cpu"):
     """The JAX ``BatchBeaconVerifier._encode`` batch encoding
-    (sig_x, sign, u0, u1) -> port tensors (sign flags as int64)."""
+    (sig_x, sign, u0, u1) -> port tensors (sign flags as int64).  For G2
+    signatures sig_x is the (x0, x1) pair and u0, u1 are Fp2 pairs."""
     sig_x, sign, u0, u1 = enc
-    return (limbs_from_numpy(sig_x, device),
+    return (tree_from_numpy(sig_x, device),
             torch.from_numpy(np.asarray(sign).astype(np.int64)).to(device),
-            limbs_from_numpy(u0, device), limbs_from_numpy(u1, device))
+            tree_from_numpy(u0, device), tree_from_numpy(u1, device))
 
 
 def rlc_bits(planes, device="cpu"):
     """The JAX package's RLC bit planes in split form (``_rlc_scalars(n,
-    pad, split=2)``: two (64, pad) uint32 arrays, MSB first) -> the int32
-    planes the port's ``_rlc_run_g1sig(..., bits=)`` takes."""
+    pad, split)``: split=2 gives two (64, pad) uint32 arrays, split=4 four
+    (32, pad), MSB first) -> the int32 planes the port's
+    ``_rlc_run_g1sig`` / ``_rlc_run_g2sig(..., bits=)`` take."""
     return tuple(torch.from_numpy(np.asarray(b).astype(np.int32)).to(device)
                  for b in planes)
 

@@ -1,27 +1,37 @@
-"""Batched beacon verification for the short-signature scheme (sigs on G1).
+"""Batched beacon verification, all three drand schemes.
 
-Counterpart of drand_tpu/crypto/batch.py for ``bls-unchained-on-g1`` on
-the FIELDS front (host hash-to-field).  The N verification equations
+Counterpart of drand_tpu/crypto/batch.py on the FIELDS front (host
+hash-to-field).  The N verification equations
 
-    e(S_i, -g2) * e(H(m_i), pk) == 1
+    e(S_i, -g2) * e(H(m_i), pk) == 1     bls-unchained-on-g1 (sigs on G1)
+    e(-g1, S_i) * e(pk, H(m_i)) == 1     pedersen-bls-chained / -unchained
+                                         (sigs on G2, keys on G1)
 
 collapse to ONE two-pair check by a random linear combination (RLC),
 
     e(sum r_i S_i, -g2) * e(sum r_i H_i, pk) == 1       (r_i random),
 
-sound except with probability ~2^-128 because pk is the same for every
-round.  ``verify_batch`` runs one RLC pass over the padded batch; on a
-failure it bisects with RLC halves down to 64 rounds and runs the exact
-per-round pass on each failing range, with the same verdict at every slot
-as the JAX verifier.
+(and its G2 mirror) sound except with probability ~2^-128 because pk is
+the same for every round.  ``verify_batch`` runs one RLC pass over the
+padded batch; on a failure it bisects with RLC halves down to 64 rounds
+and runs the exact per-round pass on each failing range, with the same
+verdict at every slot as the JAX verifier.
 
-One RLC pass launches K1 four times (the shared sqrt scan at width 3N, the
-batch inversion of the GLV tables and the two to_affine at one lane), K2
-three times (two |x| ladders of the subgroup check, one cofactor
-clearing), K8 once (2N lanes), K7 twice per point sum (two sums), K3 once
-(2 pairs) and K4 once (1 lane).  One exact pass launches K1 three times
-(the sqrt scan and two to_affine at N), K2 three times, K3 once (2N pairs)
-and K4 once (N lanes).
+G1 signatures: one RLC pass launches K1 four times (the shared sqrt scan
+at width 3N, the batch inversion of the GLV tables and the two to_affine
+at one lane), K2 three times (two |x| ladders of the subgroup check, one
+cofactor clearing), K8 once (2N lanes), K7 twice per point sum (two sums),
+K3 once (2 pairs) and K4 once (1 lane).  One exact pass launches K1 three
+times (the sqrt scan and two to_affine at N), K2 three times, K3 once (2N
+pairs) and K4 once (N lanes).
+
+G2 signatures: one RLC pass launches K5 once (the shared E2 scan at 3N),
+K2-G2 three times (the |x| ladder of the subgroup check, two in cofactor
+clearing), K8-G2 once (4N lanes: [S, psi S, H, psi H] with the 128-bit
+coefficient split four ways across psi), K7-G2 twice per point sum, K1 three
+times at one lane (the Fp2 inverses of the batch inversion and of the two
+to_affine), K3 once and K4 once; the exact pass K5 once, K2-G2 three times,
+K1 twice at N (two to_affine), K3 once (2N pairs) and K4 once (N lanes).
 
 Host/device split: the host parses wire signatures with numpy and hashes
 messages to field elements (hashlib); every curve and pairing operation
@@ -41,9 +51,9 @@ import torch
 
 from .host import h2c as H2C
 from .host.params import P, G1_GEN, G2_GEN
-from .host.serialize import y_is_larger_fp
-from .host.curve import G2
-from .schemes import Scheme, GroupG1
+from .host.serialize import y_is_larger_fp, y_is_larger_fp2
+from .host.curve import G1, G2
+from .schemes import Scheme, GroupG1, GroupG2
 from ..ops import curve as DC
 from ..ops import h2c as DH
 from ..ops import kernels as K
@@ -59,12 +69,21 @@ _MIN_BATCH = 8
 DEFAULT_PIPELINE_DEPTH = 1
 INFLIGHT_BUDGET_BYTES = 64 << 20
 
+_NEG_G1 = G1.neg(G1_GEN)
 _NEG_G2 = G2.neg(G2_GEN)
 _P_LIMBS = L.int_to_limbs(P)
+# canonical generator x limbs and sign flags for malformed and padding
+# slots; G2's x is (c0, c1)
 _GEN_X_G1 = L.int_to_limbs(G1_GEN[0])
 _GEN_SIGN_G1 = int(y_is_larger_fp(G1_GEN[1]))
+_GEN_X_G2 = np.stack([L.int_to_limbs(G2_GEN[0][0]),
+                      L.int_to_limbs(G2_GEN[0][1])])
+_GEN_SIGN_G2 = int(y_is_larger_fp2(G2_GEN[1]))
 # in-pipeline generator substitute (Montgomery Jacobian, z = 1)
-_GEN_JAC_G1 = tuple(G1_GEN[i] * L.R_MONT % P for i in range(2)) + (L.R_MONT,)
+_mont = lambda x: x * L.R_MONT % P
+_GEN_JAC_G1 = (_mont(G1_GEN[0]), _mont(G1_GEN[1]), L.R_MONT)
+_GEN_JAC_G2 = ((_mont(G2_GEN[0][0]), _mont(G2_GEN[0][1])),
+               (_mont(G2_GEN[1][0]), _mont(G2_GEN[1][1])), (L.R_MONT, 0))
 
 # Host pack wall time (pack_chunk) and device passes, process-wide.
 _PACK_SECONDS = {"t": 0.0}
@@ -92,16 +111,17 @@ def pass_counts() -> dict:
     return dict(_PASSES)
 
 
-def chunk_footprint_bytes(pad: int) -> int:
+def chunk_footprint_bytes(pad: int, g2sig: bool = False) -> int:
     """Device bytes of one packed chunk encoding (sig x limbs, sign flag,
-    two hash-to-field elements; int64 limbs), the unit the in-flight
-    budget divides."""
+    two hash-to-field elements; int64 limbs; Fp2 doubles x and the field
+    elements), the unit the in-flight budget divides."""
     limb_bytes = L.NLIMB * 8
-    return pad * (3 * limb_bytes + 8)
+    return pad * ((6 if g2sig else 3) * limb_bytes + 8)
 
 
-def max_pipeline_depth(pad: int) -> int:
-    return max(1, INFLIGHT_BUDGET_BYTES // max(1, chunk_footprint_bytes(pad)))
+def max_pipeline_depth(pad: int, g2sig: bool = False) -> int:
+    return max(1, INFLIGHT_BUDGET_BYTES
+               // max(1, chunk_footprint_bytes(pad, g2sig)))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -128,11 +148,12 @@ def _ge_p(limbs: np.ndarray) -> np.ndarray:
     return np.where(any_nz, diff[np.arange(len(limbs)), top] > 0, True)
 
 
-def _wire_parse(sigs):
-    """Compressed G1 wire signatures -> (x limbs (n, 24), sign bits, bad
-    mask), all numpy."""
+def _wire_parse(sigs, g2: bool = False):
+    """Compressed wire signatures -> (x limbs, sign bits, bad mask), all
+    numpy.  x: (n, 24) on G1, (n, 2, 24) [c0, c1] on G2, whose wire order
+    is c1 then c0."""
     n = len(sigs)
-    nb = GroupG1.point_len
+    nb = (GroupG2 if g2 else GroupG1).point_len
     bad = np.zeros(n, dtype=bool)
     arr = np.zeros((n, nb), np.uint8)
     ok_len = [i for i, s in enumerate(sigs) if len(s) == nb]
@@ -146,8 +167,16 @@ def _wire_parse(sigs):
     bad |= (flags & 0x40) != 0                  # infinity: invalid signature
     sign = ((flags >> 5) & 1).astype(np.int64)
     arr[:, 0] &= 0x1F
-    w = (arr[:, ::2].astype(np.int64) << 8) | arr[:, 1::2]  # 24 BE limbs
-    x = np.ascontiguousarray(w[:, ::-1])                    # -> LE limbs
+
+    def limbs(block):                           # 48 BE bytes -> 24 LE limbs
+        w = (block[:, ::2].astype(np.int64) << 8) | block[:, 1::2]
+        return np.ascontiguousarray(w[:, ::-1])
+
+    if g2:
+        x1, x0 = limbs(arr[:, :48]), limbs(arr[:, 48:])
+        bad |= _ge_p(x0) | _ge_p(x1)
+        return np.stack([x0, x1], axis=1), sign, bad
+    x = limbs(arr)
     bad |= _ge_p(x)
     return x, sign, bad
 
@@ -176,6 +205,18 @@ def hash_msgs_to_field_g1(msgs, dst, device):
     return L.encode_mont(u0s, device), L.encode_mont(u1s, device)
 
 
+def hash_msgs_to_field_g2(msgs, dst, device):
+    """Host hash_to_field over Fp2 (count 2) -> (u0, u1), each an Fp2 pair
+    of Montgomery limb tensors."""
+    cols = [[], [], [], []]
+    for m in msgs:
+        (a0, a1), (b0, b1) = H2C.hash_to_field_fp2(m, dst, 2)
+        for c, v in zip(cols, (a0, a1, b0, b1)):
+            c.append(v)
+    e = [L.encode_mont(c, device) for c in cols]
+    return (e[0], e[1]), (e[2], e[3])
+
+
 # ---------------------------------------------------------------------------
 # RLC randomizers
 # ---------------------------------------------------------------------------
@@ -192,14 +233,16 @@ def _rlc_keys():
             int.from_bytes(raw[8:], "little"))
 
 
-def _device_rlc_bits(keys, mask):
+def _device_rlc_bits(keys, mask, split: int = 2):
     """Uniform RLC randomizer bits drawn ON THE DEVICE, fresh per pass: the
     XOR of two streams, each from its own ``torch.Generator`` seeded with
     one 64-bit key, so predicting them needs both keys.  (The JAX package
     XORs two threefry streams the same way; the bits themselves differ.)
     Lanes where `mask` is False get zero coefficients.  Returns the 128-bit
-    coefficient in split form (b0, b1), two (64, pad) int32 MSB-first
-    planes: k = k0 + lambda*k1 (curve.g1_glv_msm_terms)."""
+    coefficient in split form, `split` (128/split, pad) int32 MSB-first
+    planes: split=2 gives (b0, b1) with k = k0 + lambda*k1
+    (curve.g1_glv_msm_terms), split=4 the base-x quarters (b0..b3) with
+    k = k0 + x k1 + x^2 k2 + x^3 k3 (the G2 psi split)."""
     dev, pad = mask.device, mask.shape[0]
     w = None
     for key in keys:
@@ -211,19 +254,22 @@ def _device_rlc_bits(keys, mask):
     shifts = torch.arange(31, -1, -1, device=dev)
     bits = (w[:, None, :] >> shifts[None, :, None]) & 1
     bits = (bits.reshape(SECURITY_BITS, pad) * mask[None, :]).to(torch.int32)
-    half = SECURITY_BITS // 2
-    return bits[:half], bits[half:]
+    part = SECURITY_BITS // split
+    return tuple(bits[i * part:(i + 1) * part] for i in range(split))
 
 
 # ---------------------------------------------------------------------------
 # Device passes
 # ---------------------------------------------------------------------------
 
-def _gen_sub(pt, ok):
-    """Replace slots whose decompression failed with the generator; the
-    ok mask carries the verdict."""
-    gen = [L.const(c, str(pt[0].device)) for c in _GEN_JAC_G1]
-    return DC.G1.select(ok, pt, tuple(g.expand(pt[0].shape) for g in gen))
+def _gen_sub(curve, gen, pt, ok):
+    """Replace slots whose decompression failed with the generator (`gen`:
+    Montgomery Jacobian ints, nested like the point); the ok mask carries
+    the verdict."""
+    like = DC._leaf(pt[0])
+    genb = DC._tmap(lambda c: L.const(c, str(like.device)).expand(like.shape),
+                    gen)
+    return curve.select(ok, pt, genb)
 
 
 def _fused_verdict(sub_ok, ok, n):
@@ -243,7 +289,7 @@ def _rlc_run_g1sig(sig_x, sign, u0, u1, n, pk_aff, neg_g2_aff, bits=None):
     bits: the (b0, b1) planes of the coefficients, (64, pad) each; None
     draws them on the device from fresh keys.  Returns (sub_ok, verdict)."""
     sig_jac, parse_ok, hm = DH.g1_decompress_and_hash(sig_x, sign, u0, u1)
-    sig_jac = _gen_sub(sig_jac, parse_ok)
+    sig_jac = _gen_sub(DC.G1, _GEN_JAC_G1, sig_jac, parse_ok)
     sub_ok = DC.g1_in_subgroup(sig_jac) & parse_ok
     both = tuple(torch.cat([a, b], 0) for a, b in zip(sig_jac, hm))
     if bits is None:
@@ -291,8 +337,68 @@ def _exact_run_g1sig(sig_x, sign, u0, u1, pk_aff, neg_g2_aff):
     subgroup check, two to_affine, one Miller loop over 2N pairs and one
     final exponentiation over N lanes."""
     sig_jac, parse_ok, hm = DH.g1_decompress_and_hash(sig_x, sign, u0, u1)
-    sig_jac = _gen_sub(sig_jac, parse_ok)
+    sig_jac = _gen_sub(DC.G1, _GEN_JAC_G1, sig_jac, parse_ok)
     return parse_ok & _exact_g1sig_core(sig_jac, hm, pk_aff, neg_g2_aff)
+
+
+def _pair_g2(a, b):
+    """Two G2 affine points (x, y) -> the (x, y) Fp2 pairs stacked on a
+    leading pair axis."""
+    st = lambda u, v: torch.stack([u, v])
+    return tuple(DC._tmap(st, ca, cb) for ca, cb in zip(a, b))
+
+
+def _rlc_run_g2sig(sig_x, sign, u0, u1, n, pk_aff, neg_g1_aff, bits=None):
+    """One RLC check for the schemes with signatures on G2 and keys on G1
+    (pedersen-bls-chained / -unchained), first n lanes real.
+
+    Front end: ONE K5 E2 scan fuses decompression and both SSWU maps.
+    MSM: the 128-bit coefficient is sampled as base-x quarters (b0..b3);
+    lanes [S, psi S, H, psi H] run the 32-step psi^2-joint ladder (K8-G2)
+    with bl = [b0, b1, b0, b1], bh = [b2, b3, b2, b3], so S_i and H_i get
+    k_i = b0 + x b1 + x^2 b2 + x^3 b3; A sums the S half and B the H half
+    (K7-G2); e(-g1, A) * e(pk, B) == 1 in one 2-pair Miller loop.
+
+    bits: the planes (b0, b1, b2, b3), (32, pad) each; None draws them on
+    the device from fresh keys.  Returns (sub_ok, verdict)."""
+    sig_jac, parse_ok, hm = DH.g2_decompress_and_hash(sig_x[0], sig_x[1],
+                                                      sign, u0, u1)
+    sig_jac = _gen_sub(DC.G2, _GEN_JAC_G2, sig_jac, parse_ok)
+    sub_ok = DC.g2_in_subgroup(sig_jac) & parse_ok
+    base = DC._cat_lanes(sig_jac, DC.g2_psi(sig_jac), hm, DC.g2_psi(hm))
+    if bits is None:
+        mask = torch.arange(sub_ok.shape[0], device=sub_ok.device) < n
+        bits = _device_rlc_bits(_rlc_keys(), mask, split=4)
+    b0, b1, b2, b3 = bits
+    mult = DC.g2_glv_msm_terms(base, torch.cat([b0, b1, b0, b1], 1),
+                               torch.cat([b2, b3, b2, b3], 1))
+    half = 2 * b0.shape[1]
+    A = K.sum_points(DC._tmap(lambda t: t[:half], mult))
+    Bp = K.sum_points(DC._tmap(lambda t: t[half:], mult))
+    ax, ay, _ = DC.G2.to_affine(A)
+    bx, by, _ = DC.G2.to_affine(Bp)
+    px = torch.stack([neg_g1_aff[0], pk_aff[0]])
+    py = torch.stack([neg_g1_aff[1], pk_aff[1]])
+    ok = DP.paired_product_is_one(px, py, _pair_g2((ax, ay), (bx, by)), 2)
+    return sub_ok, _fused_verdict(sub_ok, ok, n)
+
+
+def _exact_run_g2sig(sig_x, sign, u0, u1, pk_aff, neg_g1_aff):
+    """Per-round exact check e(-g1, S_i) * e(pk, H_i) == 1: decompress +
+    hash (one K5 launch at 3N), subgroup check, two to_affine, one Miller
+    loop over 2N pairs and one final exponentiation over N lanes."""
+    sig_jac, parse_ok, hm = DH.g2_decompress_and_hash(sig_x[0], sig_x[1],
+                                                      sign, u0, u1)
+    sig_jac = _gen_sub(DC.G2, _GEN_JAC_G2, sig_jac, parse_ok)
+    sub_ok = DC.g2_in_subgroup(sig_jac) & parse_ok
+    sx, sy, _ = DC.G2.to_affine(sig_jac)
+    hx, hy, _ = DC.G2.to_affine(hm)
+    shape = sx[0].shape
+    pair = lambda a, b: torch.stack([a.expand(shape), b.expand(shape)])
+    px = pair(neg_g1_aff[0], pk_aff[0])
+    py = pair(neg_g1_aff[1], pk_aff[1])
+    ok = DP.paired_product_is_one(px, py, _pair_g2((sx, sy), (hx, hy)), 2)
+    return sub_ok & ok
 
 
 class BatchBeaconVerifier:
@@ -310,24 +416,32 @@ class BatchBeaconVerifier:
 
     def __init__(self, scheme: Scheme, public_key_bytes: bytes,
                  pad_to=None, device=None):
-        if scheme.sig_group is not GroupG1:
-            raise ValueError(f"scheme {scheme.id} is not ported")
         self.scheme = scheme
+        self.g2sig = scheme.sig_group is GroupG2
         self.pad_to = pad_to
         self.device = resolve_device(device)
         self.pub_point = scheme.key_group.from_bytes(public_key_bytes)
         if self.pub_point is None:
             raise ValueError("public key is the point at infinity")
         enc = lambda c: L.encode_mont(c, self.device)
-        (x0, x1), (y0, y1) = self.pub_point
-        self.pk_aff = ((enc(x0), enc(x1)), (enc(y0), enc(y1)))
-        (x0, x1), (y0, y1) = _NEG_G2
-        self.fixed_aff = ((enc(x0), enc(x1)), (enc(y0), enc(y1)))
+        if self.g2sig:          # key and -g1 on G1: affine Fp coordinates
+            self.pk_aff = (enc(self.pub_point[0]), enc(self.pub_point[1]))
+            self.fixed_aff = (enc(_NEG_G1[0]), enc(_NEG_G1[1]))
+        else:                   # key and -g2 on G2: Fp2 pairs
+            (x0, x1), (y0, y1) = self.pub_point
+            self.pk_aff = ((enc(x0), enc(x1)), (enc(y0), enc(y1)))
+            (x0, x1), (y0, y1) = _NEG_G2
+            self.fixed_aff = ((enc(x0), enc(x1)), (enc(y0), enc(y1)))
 
     # -- host-side packing ---------------------------------------------------
 
-    def _messages(self, rounds):
-        return [self.scheme.digest_beacon(int(r)) for r in rounds]
+    def _messages(self, rounds, prev_sigs=None):
+        """The digest of each round: SHA-256 of prev_sig || round on a
+        chained scheme, of the round otherwise."""
+        if not self.scheme.chained or prev_sigs is None:
+            prev_sigs = [None] * len(rounds)
+        return [self.scheme.digest_beacon(int(r), p)
+                for r, p in zip(rounds, prev_sigs)]
 
     def _pad_for(self, n: int) -> int:
         return max(_pad_len(n), self.pad_to or 0)
@@ -336,23 +450,27 @@ class BatchBeaconVerifier:
         """Numpy wire parse -> (sig_x tensor, sign flags, bad mask); bad and
         padding slots carry the generator encoding."""
         n = len(sigs)
-        xw, sign, bad = _wire_parse(sigs)
-        full_x = np.empty((pad, L.NLIMB), np.int64)
+        xw, sign, bad = _wire_parse(sigs, self.g2sig)
+        gx = _GEN_X_G2 if self.g2sig else _GEN_X_G1
+        gsign = _GEN_SIGN_G2 if self.g2sig else _GEN_SIGN_G1
+        full_x = np.empty((pad,) + gx.shape, np.int64)
         full_sign = np.empty(pad, np.int64)
         full_x[:n], full_sign[:n] = xw, sign
-        full_x[:n][bad] = _GEN_X_G1
-        full_sign[:n][bad] = _GEN_SIGN_G1
-        full_x[n:] = _GEN_X_G1
-        full_sign[n:] = _GEN_SIGN_G1
-        return (torch.from_numpy(full_x).to(self.device),
-                torch.from_numpy(full_sign).to(self.device), bad)
+        full_x[:n][bad] = gx
+        full_sign[:n][bad] = gsign
+        full_x[n:] = gx
+        full_sign[n:] = gsign
+        x = torch.from_numpy(full_x).to(self.device)
+        sig_x = (x[:, 0], x[:, 1]) if self.g2sig else x
+        return sig_x, torch.from_numpy(full_sign).to(self.device), bad
 
     def _encode(self, sigs, msgs, pad):
         """Host packing (FIELDS front): wire parse and host hash-to-field.
         Returns ((sig_x, sign, u0, u1), bad)."""
         sig_x, sign, bad = self._encode_sigs(sigs, pad)
         pmsgs = _pad_msgs(msgs, pad)
-        u0, u1 = hash_msgs_to_field_g1(pmsgs, self.scheme.dst, self.device)
+        h2f = hash_msgs_to_field_g2 if self.g2sig else hash_msgs_to_field_g1
+        u0, u1 = h2f(pmsgs, self.scheme.dst, self.device)
         return (sig_x, sign, u0, u1), bad
 
     # -- verification ---------------------------------------------------------
@@ -371,15 +489,14 @@ class BatchBeaconVerifier:
             s = t[lo:hi]
             return torch.cat([s, t[:extra]], 0) if extra else s
 
-        return tuple(cut(t) for t in enc)
+        return DC._tmap(cut, enc)
 
     def _rlc_dispatch(self, enc, n):
         """One RLC pass with fresh device randomizers; returns the verdict
         as a device scalar."""
-        sig_x, sign, u0, u1 = enc
+        run = _rlc_run_g2sig if self.g2sig else _rlc_run_g1sig
         _count_dispatch("rlc")
-        _, all_ok = _rlc_run_g1sig(sig_x, sign, u0, u1, n, self.pk_aff,
-                                   self.fixed_aff)
+        _, all_ok = run(*enc, n, self.pk_aff, self.fixed_aff)
         return all_ok
 
     def _rlc_ok(self, enc, n) -> bool:
@@ -389,10 +506,9 @@ class BatchBeaconVerifier:
 
     def _exact(self, enc, n) -> np.ndarray:
         """Per-round exact pairing checks over an encoded batch."""
-        sig_x, sign, u0, u1 = enc
+        run = _exact_run_g2sig if self.g2sig else _exact_run_g1sig
         _count_dispatch("exact")
-        ok = _exact_run_g1sig(sig_x, sign, u0, u1, self.pk_aff,
-                              self.fixed_aff)
+        ok = run(*enc, self.pk_aff, self.fixed_aff)
         return ok.cpu().numpy()[:n]
 
     def _verify_range(self, enc, lo, hi, bad, top=False) -> np.ndarray:
@@ -415,12 +531,14 @@ class BatchBeaconVerifier:
         One RLC check over the whole batch; on failure RLC bisection
         narrows to the bad region and exact per-round checks locate the
         invalid rounds.  The batch is encoded once; bisection works on
-        slices of that encoding.  prev_sigs is the JAX signature's: the
-        unchained scheme's digest does not read it."""
+        slices of that encoding.  prev_sigs: each round's previous
+        signature, read by a chained scheme's digest only (a falsy one,
+        as at the genesis slot, hashes the round alone)."""
         n = len(rounds)
         if n == 0:
             return np.zeros(0, dtype=bool)
-        enc, bad = self._encode(sigs, self._messages(rounds), self._pad_for(n))
+        enc, bad = self._encode(sigs, self._messages(rounds, prev_sigs),
+                                self._pad_for(n))
         return self._verify_range(enc, 0, n, bad, top=True)
 
     # -- pack / dispatch / resolve -------------------------------------------
@@ -431,7 +549,8 @@ class BatchBeaconVerifier:
         the wall time accumulates into pack_seconds()."""
         t0 = time.perf_counter()
         n = len(rounds)
-        enc, bad = self._encode(sigs, self._messages(rounds), self._pad_for(n))
+        enc, bad = self._encode(sigs, self._messages(rounds, prev_sigs),
+                                self._pad_for(n))
         with _LOCK:
             _PACK_SECONDS["t"] += time.perf_counter() - t0
         return [n, enc, bad]
@@ -458,8 +577,8 @@ class BatchBeaconVerifier:
         """The requested depth (default DEFAULT_PIPELINE_DEPTH) clamped so
         depth x chunk encoding stays under INFLIGHT_BUDGET_BYTES."""
         want = depth if depth is not None else DEFAULT_PIPELINE_DEPTH
-        return max(1, min(int(want),
-                          max_pipeline_depth(self._pad_for(chunk_size))))
+        return max(1, min(int(want), max_pipeline_depth(
+            self._pad_for(chunk_size), self.g2sig)))
 
     def verify_stream(self, beacons, chunk_size: int = 8192, depth=None):
         """Streamed verification of an iterable of beacons (objects with
@@ -511,9 +630,16 @@ class BatchBeaconVerifier:
 
     def verify_chain(self, beacons):
         """Verify a sequence of beacons (objects with .round, .signature,
-        optionally .previous_sig); the scheme is unchained, so there is no
-        linkage to check.  Returns (all_ok, per-beacon validity array)."""
-        valid = self.verify_batch(
-            [b.round for b in beacons], [b.signature for b in beacons],
-            [getattr(b, "previous_sig", None) for b in beacons])
+        optionally .previous_sig): on a chained scheme the host checks the
+        linkage (each previous_sig is the signature before it), and every
+        signature is verified in one batch.  Returns (all_ok, per-beacon
+        validity array)."""
+        n = len(beacons)
+        prevs = [getattr(b, "previous_sig", None) for b in beacons]
+        link_ok = np.ones(n, dtype=bool)
+        if self.scheme.chained:
+            for i in range(1, n):
+                link_ok[i] = prevs[i] == beacons[i - 1].signature
+        valid = link_ok & self.verify_batch(
+            [b.round for b in beacons], [b.signature for b in beacons], prevs)
         return bool(valid.all()), valid

@@ -9,7 +9,7 @@ infinity.
 """
 
 from . import field as F
-from .params import P, R, B1, B2, G1_GEN, G2_GEN, H_EFF_G1
+from .params import P, R, X, B1, B2, G1_GEN, G2_GEN, H_EFF_G1
 
 
 class FieldOps:
@@ -147,3 +147,30 @@ G2 = Curve(FP2_OPS, B2, G2_GEN, "G2")
 def g1_clear_cofactor(p):
     """h_eff = 1 - x (RFC 9380 §8.8.1 fast method for BLS12-381 G1)."""
     return G1.mul(p, H_EFF_G1)
+
+
+# psi = untwist . frobenius . twist on the D-twist E2 with this tower:
+# psi(x, y) = (c_x * conj(x), c_y * conj(y)), c_x = 1/xi^((p-1)/3),
+# c_y = 1/xi^((p-1)/2).
+PSI_CX = F.fp2_inv(F.fp2_pow(F.XI, (P - 1) // 3))
+PSI_CY = F.fp2_inv(F.fp2_pow(F.XI, (P - 1) // 2))
+
+
+def g2_psi(p):
+    if p is None:
+        return None
+    x, y = p
+    return (F.fp2_mul(PSI_CX, F.fp2_conj(x)), F.fp2_mul(PSI_CY, F.fp2_conj(y)))
+
+
+def g2_clear_cofactor(p):
+    """Budroni-Pintore: [x^2-x-1]P + [x-1]psi(P) + psi(psi(2P)), exactly
+    h_eff * P for the RFC 9380 BLS12381G2 suite."""
+    xP = G2.mul(p, X)                  # x < 0: mul negates
+    x2P = G2.mul(xP, X)
+    t = G2.add(x2P, G2.neg(xP))        # (x^2 - x) P
+    t = G2.add(t, G2.neg(p))           # (x^2 - x - 1) P
+    u = g2_psi(G2.add(xP, G2.neg(p)))  # psi((x - 1) P)
+    t = G2.add(t, u)
+    v = g2_psi(g2_psi(G2.add(p, p)))   # psi^2(2P)
+    return G2.add(t, v)

@@ -123,6 +123,16 @@ def fp2_pow(a, e):
     return out
 
 
+def fp2_is_square(a):
+    """a is a square in Fp2 iff its norm is a square in Fp."""
+    return fp_is_square((a[0] * a[0] + a[1] * a[1]) % P)
+
+
+def fp2_sgn0(a):
+    """RFC 9380 sgn0 for m = 2 (little-endian lexicographic parity)."""
+    return (a[0] & 1) | (int(a[0] == 0) & (a[1] & 1))
+
+
 def fp2_sqrt(a):
     """Square root in Fp2 for p = 3 mod 4 via the norm trick; None if
     a is not a square."""

@@ -1,18 +1,20 @@
-"""RFC 9380 hash-to-field and hash-to-G1 on the host (hashlib + big ints).
+"""RFC 9380 hash-to-field and hash-to-curve on the host (hashlib + big ints).
 
-The port's own copy of the G1 parts of drand_tpu/crypto/host/h2c.py:
-expand_message_xmd / hash_to_field_fp feed the device pipeline (the FIELDS
-front of batched verification), and hash_to_curve_g1 is the pure-Python
-reference the device hash-to-G1 is cross-checked against.
-Suite: BLS12381G1_XMD:SHA-256_SSWU_RO_.
+The port's own copy of drand_tpu/crypto/host/h2c.py: expand_message_xmd
+and hash_to_field_fp / hash_to_field_fp2 feed the device pipeline (the
+FIELDS front of batched verification), and hash_to_curve_g1 /
+hash_to_curve_g2 are the pure-Python references the device hash-to-curve
+is cross-checked against.
+Suites: BLS12381G1_XMD:SHA-256_SSWU_RO_ and BLS12381G2_XMD:SHA-256_SSWU_RO_.
 """
 
 import hashlib
 
 from . import field as F
-from .params import P, HTF_L, ISO_A1, ISO_B1, Z1
-from .curve import G1, g1_clear_cofactor
+from .params import P, HTF_L, ISO_A1, ISO_B1, ISO_A2, ISO_B2, Z1, Z2
+from .curve import G1, G2, g1_clear_cofactor, g2_clear_cofactor
 from ._iso_g1 import XNUM, XDEN, YNUM, YDEN
+from . import _iso_g2 as ISO2
 
 
 def expand_message_xmd(msg: bytes, dst: bytes, len_in_bytes: int) -> bytes:
@@ -35,6 +37,17 @@ def hash_to_field_fp(msg: bytes, dst: bytes, count: int):
     ub = expand_message_xmd(msg, dst, count * HTF_L)
     return [int.from_bytes(ub[i * HTF_L:(i + 1) * HTF_L], "big") % P
             for i in range(count)]
+
+
+def hash_to_field_fp2(msg: bytes, dst: bytes, count: int):
+    ub = expand_message_xmd(msg, dst, count * 2 * HTF_L)
+    out = []
+    for i in range(count):
+        base = i * 2 * HTF_L
+        c0 = int.from_bytes(ub[base:base + HTF_L], "big") % P
+        c1 = int.from_bytes(ub[base + HTF_L:base + 2 * HTF_L], "big") % P
+        out.append((c0, c1))
+    return out
 
 
 def _sswu_fp(u):
@@ -98,4 +111,76 @@ def hash_to_curve_g1(msg: bytes, dst: bytes):
     r = _affine_add_fp(_sswu_fp(u0), _sswu_fp(u1), ISO_A1)
     out = g1_clear_cofactor(iso_map_g1(r))
     assert G1.is_on_curve(out)
+    return out
+
+
+def _sswu_fp2(u):
+    """map_to_curve_simple_swu onto E2': y^2 = x^3 + A*x + B over Fp2,
+    Z = Z2."""
+    A, B, Z = ISO_A2, ISO_B2, Z2
+    tv1 = F.fp2_mul(Z, F.fp2_sqr(u))
+    tv2 = F.fp2_add(F.fp2_sqr(tv1), tv1)
+    if F.fp2_is_zero(tv2):
+        x1 = F.fp2_mul(B, F.fp2_inv(F.fp2_mul(Z, A)))
+    else:
+        x1 = F.fp2_mul(F.fp2_mul(F.fp2_neg(B), F.fp2_inv(A)),
+                       F.fp2_add(F.FP2_ONE, F.fp2_inv(tv2)))
+
+    def g(x):
+        return F.fp2_add(F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x),
+                                   F.fp2_mul(A, x)), B)
+
+    x2 = F.fp2_mul(tv1, x1)
+    if F.fp2_is_square(g(x1)):
+        x, y = x1, F.fp2_sqrt(g(x1))
+    else:
+        x, y = x2, F.fp2_sqrt(g(x2))
+    if F.fp2_sgn0(u) != F.fp2_sgn0(y):
+        y = F.fp2_neg(y)
+    return (x, y)
+
+
+def _affine_add_fp2(p, q, A):
+    if p is None:
+        return q
+    if q is None:
+        return p
+    x1, y1 = p
+    x2, y2 = q
+    if F.fp2_eq(x1, x2):
+        if F.fp2_is_zero(F.fp2_add(y1, y2)):
+            return None
+        lam = F.fp2_mul(F.fp2_add(F.fp2_scalar(F.fp2_sqr(x1), 3), A),
+                        F.fp2_inv(F.fp2_add(y1, y1)))
+    else:
+        lam = F.fp2_mul(F.fp2_sub(y2, y1), F.fp2_inv(F.fp2_sub(x2, x1)))
+    x3 = F.fp2_sub(F.fp2_sub(F.fp2_sqr(lam), x1), x2)
+    y3 = F.fp2_sub(F.fp2_mul(lam, F.fp2_sub(x1, x3)), y1)
+    return (x3, y3)
+
+
+def _horner_fp2(coeffs, x):
+    acc = F.FP2_ZERO
+    for c in reversed(coeffs):
+        acc = F.fp2_add(F.fp2_mul(acc, x), c)
+    return acc
+
+
+def iso_map_g2(p):
+    """Map a point on E2' to E2 by the 3-isogeny."""
+    if p is None:
+        return None
+    x, y = p
+    xo = F.fp2_mul(_horner_fp2(ISO2.XNUM, x),
+                   F.fp2_inv(_horner_fp2(ISO2.XDEN, x)))
+    yo = F.fp2_mul(y, F.fp2_mul(_horner_fp2(ISO2.YNUM, x),
+                                F.fp2_inv(_horner_fp2(ISO2.YDEN, x))))
+    return (xo, yo)
+
+
+def hash_to_curve_g2(msg: bytes, dst: bytes):
+    u0, u1 = hash_to_field_fp2(msg, dst, 2)
+    r = _affine_add_fp2(_sswu_fp2(u0), _sswu_fp2(u1), ISO_A2)
+    out = g2_clear_cofactor(iso_map_g2(r))
+    assert G2.is_on_curve(out)
     return out

@@ -1,4 +1,5 @@
-// BLS12-381 field tower and G1 group law for the port's Hopper kernels.
+// BLS12-381 field tower and the G1 and G2 group laws for the port's Hopper
+// kernels.
 //
 // One thread owns one lane.  An Fp element is 12 x 32-bit little-endian
 // words in Montgomery form with R = 2^384 -- the same Montgomery values as
@@ -14,9 +15,9 @@
 // 2 x 144 word products (lo and hi halves) per multiply, which is what bounds
 // every kernel of this file on the card (integer multiply-adds).
 //
-// Formulas that fix a projective representative (the G1 Jacobian double
-// and complete add, the Miller-loop steps) follow the JAX package step for
-// step; field products, inverses and powers have unique values, so those
+// Formulas that fix a projective representative (the G1 and G2 Jacobian
+// double and complete add, the mixed add, the Miller-loop steps) follow the
+// JAX package step for step; field products, inverses and powers have unique values, so those
 // may use any correct formula.
 //
 // The header also compiles as plain C++ (no __CUDACC__): the same lane code
@@ -631,6 +632,200 @@ DNI void g1_add_mixed(G1J& r, const G1J& p, const G1A& q) {
 }
 
 // ---------------------------------------------------------------------------
+// G2 Jacobian group law over Fp2: the same formulas as G1 (the JAX
+// DevCurve is generic over its field), product group by product group.  A
+// G2 point is 72 words, so its temporaries live in local memory; the
+// functions are __noinline__, as the Fp12 tower is, to keep the three
+// kernels that call them within the register file and the build short.
+// ---------------------------------------------------------------------------
+
+struct G2J { Fp2 X, Y, Z; };
+struct G2A { Fp2 x, y; };  // affine, never infinity
+
+DI void g2_infinity(G2J& r) {
+  fp2_one(r.X);
+  fp2_one(r.Y);
+  fp2_zero(r.Z);
+}
+
+DI bool fp2_eq(const Fp2& a, const Fp2& b) {
+  return fp_eq(a.c0, b.c0) && fp_eq(a.c1, b.c1);
+}
+
+// r = c ? a : b, word by word: a select, not a branch.  The G2 adds pick
+// their result this way and write r once: with per-lane branches that
+// copied whole points (r = p where r and p are the same accumulator), a
+// warp whose lanes diverged between the infinite-operand cases and the
+// generic sum faulted with an illegal address on the H100.
+DI void g2_select(G2J& r, bool c, const G2J& a, const G2J& b) {
+  const Fp* pa = &a.X.c0;
+  const Fp* pb = &b.X.c0;
+  Fp* pr = &r.X.c0;
+  UNROLL for (int k = 0; k < 6; k++)
+    UNROLL for (int w = 0; w < 12; w++)
+      pr[k].v[w] = c ? pa[k].v[w] : pb[k].v[w];
+}
+
+DNI void g2_double(G2J& r, const G2J& p) {
+  Fp2 A, B, t, XB, C, U, D, E, Fv, X3, Y3a, C2, C4, tmp;
+  fp2_sqr(A, p.X);
+  fp2_sqr(B, p.Y);
+  fp2_mul(t, p.Y, p.Z);
+  fp2_add(XB, p.X, B);
+  fp2_sqr(C, B);
+  fp2_sqr(U, XB);
+  fp2_sub(D, U, A);
+  fp2_sub(D, D, C);
+  fp2_add(D, D, D);
+  fp2_add(E, A, A);
+  fp2_add(E, E, A);
+  fp2_sqr(Fv, E);
+  fp2_add(tmp, D, D);
+  fp2_sub(X3, Fv, tmp);
+  fp2_sub(tmp, D, X3);
+  fp2_mul(Y3a, E, tmp);
+  fp2_add(C2, C, C);
+  fp2_add(C4, C2, C2);
+  fp2_add(tmp, C4, C4);
+  r.X = X3;
+  fp2_sub(r.Y, Y3a, tmp);
+  fp2_add(r.Z, t, t);
+}
+
+// Complete addition: infinity operands, P == Q and P == -Q by selection,
+// in the JAX package's order of precedence.
+DNI void g2_add(G2J& r, const G2J& p, const G2J& q) {
+  Fp2 Z12, Z1Z1, Z2Z2, ZS, dA, dB, dt, XB, U1, U2, t1, t2, dC, dU, dD, dE;
+  Fp2 S1, S2, dFv, H, HH, rr, dX3, I, dY3a, dC2, dC4, dY3, dZ3, J, V, RR, Z3;
+  Fp2 X3, Y3a, S1J, Y3, tmp;
+  fp2_add(Z12, p.Z, q.Z);
+  fp2_sqr(Z1Z1, p.Z);
+  fp2_sqr(Z2Z2, q.Z);
+  fp2_sqr(ZS, Z12);
+  fp2_sqr(dA, p.X);
+  fp2_sqr(dB, p.Y);
+  fp2_mul(dt, p.Y, p.Z);
+  fp2_add(XB, p.X, dB);
+  fp2_mul(U1, p.X, Z2Z2);
+  fp2_mul(U2, q.X, Z1Z1);
+  fp2_mul(t1, q.Z, Z2Z2);
+  fp2_mul(t2, p.Z, Z1Z1);
+  fp2_sqr(dC, dB);
+  fp2_sqr(dU, XB);
+  fp2_sub(dD, dU, dA);
+  fp2_sub(dD, dD, dC);
+  fp2_add(dD, dD, dD);
+  fp2_add(dE, dA, dA);
+  fp2_add(dE, dE, dA);
+  fp2_mul(S1, p.Y, t1);
+  fp2_mul(S2, q.Y, t2);
+  fp2_sqr(dFv, dE);
+  fp2_sub(H, U2, U1);
+  fp2_add(HH, H, H);
+  fp2_sub(rr, S2, S1);
+  fp2_add(rr, rr, rr);
+  fp2_add(tmp, dD, dD);
+  fp2_sub(dX3, dFv, tmp);
+  fp2_sqr(I, HH);
+  fp2_sub(tmp, dD, dX3);
+  fp2_mul(dY3a, dE, tmp);
+  fp2_add(dC2, dC, dC);
+  fp2_add(dC4, dC2, dC2);
+  fp2_add(tmp, dC4, dC4);
+  fp2_sub(dY3, dY3a, tmp);
+  fp2_add(dZ3, dt, dt);
+  fp2_mul(J, H, I);
+  fp2_mul(V, U1, I);
+  fp2_sqr(RR, rr);
+  fp2_sub(tmp, ZS, Z1Z1);
+  fp2_sub(tmp, tmp, Z2Z2);
+  fp2_mul(Z3, tmp, H);
+  fp2_sub(X3, RR, J);
+  fp2_add(tmp, V, V);
+  fp2_sub(X3, X3, tmp);
+  fp2_sub(tmp, V, X3);
+  fp2_mul(Y3a, rr, tmp);
+  fp2_mul(S1J, S1, J);
+  fp2_add(tmp, S1J, S1J);
+  fp2_sub(Y3, Y3a, tmp);
+
+  const bool inf1 = fp2_is_zero(p.Z);
+  const bool inf2 = fp2_is_zero(q.Z);
+  const bool same_x = fp2_eq(U1, U2) && !inf1 && !inf2;
+  const bool same_y = fp2_eq(S1, S2);
+  G2J out = {X3, Y3, Z3}, alt = {dX3, dY3, dZ3};
+  g2_select(out, same_x && same_y, alt, out);
+  g2_infinity(alt);
+  g2_select(out, same_x && !same_y, alt, out);
+  g2_select(out, inf1, q, out);
+  g2_select(out, inf2, p, out);
+  r = out;
+}
+
+// Complete mixed addition p + q, q affine (DevCurve.add_mixed), with the
+// JAX selections' precedence: an infinite accumulator gives (x2, y2, 1),
+// then P == -Q gives infinity, then P == Q the double.
+DNI void g2_add_mixed(G2J& r, const G2J& p, const G2A& q) {
+  Fp2 Z1Z1, dA, dB, dt, XB, U2, t2, dC, dU, dD, dE, S2, dFv, H, HH, rr, dX3;
+  Fp2 I, dY3a, dC2, dC4, dY3, dZ3, J, V, RR, Z3, X3, Y3a, S1J, Y3, tmp;
+  fp2_sqr(Z1Z1, p.Z);
+  fp2_sqr(dA, p.X);
+  fp2_sqr(dB, p.Y);
+  fp2_mul(dt, p.Y, p.Z);
+  fp2_add(XB, p.X, dB);
+  fp2_mul(U2, q.x, Z1Z1);
+  fp2_mul(t2, p.Z, Z1Z1);
+  fp2_sqr(dC, dB);
+  fp2_sqr(dU, XB);
+  fp2_sub(dD, dU, dA);
+  fp2_sub(dD, dD, dC);
+  fp2_add(dD, dD, dD);
+  fp2_add(dE, dA, dA);
+  fp2_add(dE, dE, dA);
+  fp2_mul(S2, q.y, t2);
+  fp2_sqr(dFv, dE);
+  fp2_sub(H, U2, p.X);
+  fp2_add(HH, H, H);
+  fp2_sub(rr, S2, p.Y);
+  fp2_add(rr, rr, rr);
+  fp2_add(tmp, dD, dD);
+  fp2_sub(dX3, dFv, tmp);
+  fp2_sqr(I, HH);
+  fp2_sub(tmp, dD, dX3);
+  fp2_mul(dY3a, dE, tmp);
+  fp2_add(dC2, dC, dC);
+  fp2_add(dC4, dC2, dC2);
+  fp2_add(tmp, dC4, dC4);
+  fp2_sub(dY3, dY3a, tmp);
+  fp2_add(dZ3, dt, dt);
+  fp2_mul(J, H, I);
+  fp2_mul(V, p.X, I);
+  fp2_sqr(RR, rr);
+  fp2_mul(Z3, p.Z, HH);
+  fp2_sub(X3, RR, J);
+  fp2_add(tmp, V, V);
+  fp2_sub(X3, X3, tmp);
+  fp2_sub(tmp, V, X3);
+  fp2_mul(Y3a, rr, tmp);
+  fp2_mul(S1J, p.Y, J);
+  fp2_add(tmp, S1J, S1J);
+  fp2_sub(Y3, Y3a, tmp);
+
+  const bool inf1 = fp2_is_zero(p.Z);
+  const bool same_x = fp2_eq(U2, p.X) && !inf1;
+  const bool same_y = fp2_eq(S2, p.Y);
+  G2J out = {X3, Y3, Z3}, alt = {dX3, dY3, dZ3};
+  g2_select(out, same_x && same_y, alt, out);
+  g2_infinity(alt);
+  g2_select(out, same_x && !same_y, alt, out);
+  alt.X = q.x;
+  alt.Y = q.y;
+  fp2_one(alt.Z);
+  g2_select(out, inf1, alt, out);
+  r = out;
+}
+
+// ---------------------------------------------------------------------------
 // Lane I/O: structure-of-arrays, word w of coordinate c of lane b at
 // (c * 12 + w) * B + b, so neighbouring threads read neighbouring words.
 // ---------------------------------------------------------------------------
@@ -644,6 +839,49 @@ DI void store_fp(uint32_t* base, int coord, const Fp& a, int64_t B, int64_t lane
   uint32_t* p = base + (int64_t)coord * 12 * B + lane;
   UNROLL for (int w = 0; w < 12; w++) p[(int64_t)w * B] = a.v[w];
 }
+
+// Points: G1 as 3 coordinates (X, Y, Z), G2 as 6 (X.c0, X.c1, Y.c0, ...),
+// from coordinate c0 on.  The overloads let one lane template serve both.
+DI void load_point(G1J& p, const uint32_t* base, int c0, int64_t B, int64_t lane) {
+  load_fp(p.X, base, c0, B, lane);
+  load_fp(p.Y, base, c0 + 1, B, lane);
+  load_fp(p.Z, base, c0 + 2, B, lane);
+}
+
+DI void store_point(uint32_t* base, int c0, const G1J& p, int64_t B, int64_t lane) {
+  store_fp(base, c0, p.X, B, lane);
+  store_fp(base, c0 + 1, p.Y, B, lane);
+  store_fp(base, c0 + 2, p.Z, B, lane);
+}
+
+DI void load_fp2(Fp2& a, const uint32_t* base, int c0, int64_t B, int64_t lane) {
+  load_fp(a.c0, base, c0, B, lane);
+  load_fp(a.c1, base, c0 + 1, B, lane);
+}
+
+DI void store_fp2(uint32_t* base, int c0, const Fp2& a, int64_t B, int64_t lane) {
+  store_fp(base, c0, a.c0, B, lane);
+  store_fp(base, c0 + 1, a.c1, B, lane);
+}
+
+DI void load_point(G2J& p, const uint32_t* base, int c0, int64_t B, int64_t lane) {
+  load_fp2(p.X, base, c0, B, lane);
+  load_fp2(p.Y, base, c0 + 2, B, lane);
+  load_fp2(p.Z, base, c0 + 4, B, lane);
+}
+
+DI void store_point(uint32_t* base, int c0, const G2J& p, int64_t B, int64_t lane) {
+  store_fp2(base, c0, p.X, B, lane);
+  store_fp2(base, c0 + 2, p.Y, B, lane);
+  store_fp2(base, c0 + 4, p.Z, B, lane);
+}
+
+DI void point_infinity(G1J& r) { g1_infinity(r); }
+DI void point_infinity(G2J& r) { g2_infinity(r); }
+DI void point_double(G1J& r, const G1J& p) { g1_double(r, p); }
+DI void point_double(G2J& r, const G2J& p) { g2_double(r, p); }
+DI void point_add(G1J& r, const G1J& p, const G1J& q) { g1_add(r, p, q); }
+DI void point_add(G2J& r, const G2J& p, const G2J& q) { g2_add(r, p, q); }
 
 // Fp12 leaves in (c6, c2, c) nesting order: 12 coordinates
 DI void load_fp12(Fp12& f, const uint32_t* base, int64_t B, int64_t lane) {

@@ -1,247 +1,299 @@
-"""G1 group law on tensors: branchless Jacobian arithmetic, batched.
+"""G1/G2 group law on tensors: branchless Jacobian arithmetic, batched.
 
-Counterpart of the G1 half of drand_tpu/ops/curve.py.  Points are Jacobian
-(X, Y, Z) tuples of ``(..., 24)`` Montgomery limb tensors; infinity has
-Z = 0.  Everything is select-based, so one formula runs over a whole batch.
-The formulas are the JAX package's, product group by product group: a
-Jacobian point has many representatives, and the port must produce the
-same one (the tests compare coordinates exactly).
+Counterpart of drand_tpu/ops/curve.py.  ``DevCurve`` is generic over its
+field (``FieldFns``): G1 runs the formulas over Fp, G2 the same formulas
+over Fp2.  A point is a Jacobian (X, Y, Z) tuple of field elements (an Fp
+element is a ``(..., 24)`` Montgomery limb tensor, an Fp2 element a pair of
+them); infinity has Z = 0.  Everything is select-based, so one formula runs
+over a whole batch.  The formulas are the JAX package's, product group by
+product group: a Jacobian point has many representatives, and the port must
+produce the same one (the tests compare coordinates exactly).
 
   P in G1  <=>  phi(P) == [-x^2]P,   phi(x, y) = (beta*x, y)
-  h_eff = 1 - x clears the G1 cofactor (RFC 9380 section 8.8.1)
+  Q in G2  <=>  psi(Q) == [x]Q       (Bowe's check)
+  h_eff = 1 - x clears the G1 cofactor (RFC 9380 section 8.8.1); G2 uses
+  Budroni-Pintore with psi.
 
 Scalar multiplication by a fixed scalar dispatches to kernel K2
 (``kernels.scalar_mul_fixed``), the GLV-split RLC multiplication to K8
-(``kernels.scalar_mul_glv_mixed``).
+(``kernels.scalar_mul_glv_mixed``), either curve.
 """
 
 import torch
 
 from . import limbs as L
+from . import tower as T
+from ..crypto.host import field as HF
 from ..crypto.host.params import P as FP_P, X as BLS_X
 
 _BETA = pow(2, (FP_P - 1) // 3, FP_P)
 
 
-class DevCurve:
-    """y^2 = x^3 + 4 over Fp, Jacobian coordinates (the G1 instance of the
-    JAX DevCurve)."""
+class FieldFns:
+    """The field operations DevCurve is generic over.  ``mul_many`` runs k
+    independent products as one staged wide op; the group-law formulas
+    below are written as stages of independent products for it.
+    ``ones_like`` / ``zeros_like`` build an element from a leaf tensor."""
 
-    name = "G1"
+    def __init__(self, add, sub, mul, mul_many, sqr, neg, inv, is_zero, eq,
+                 select, zeros_like, ones_like):
+        self.add, self.sub, self.mul, self.mul_many = add, sub, mul, mul_many
+        self.sqr, self.neg, self.inv = sqr, neg, inv
+        self.is_zero, self.eq, self.select = is_zero, eq, select
+        self.zeros_like, self.ones_like = zeros_like, ones_like
+
+
+FP_FNS = FieldFns(
+    add=L.add_mod, sub=L.sub_mod, mul=L.mont_mul, mul_many=L.mul_many,
+    sqr=L.mont_sqr, neg=L.neg_mod, inv=L.inv_mod, is_zero=L.is_zero,
+    eq=L.eq, select=L.select, zeros_like=lambda x: x.new_zeros(x.shape),
+    ones_like=L.ones_like)
+
+FP2_FNS = FieldFns(
+    add=T.fp2_add, sub=T.fp2_sub, mul=T.fp2_mul, mul_many=T.fp2_mul_many,
+    sqr=T.fp2_sqr, neg=T.fp2_neg, inv=T.fp2_inv, is_zero=T.fp2_is_zero,
+    eq=T.fp2_eq, select=T.fp2_select, zeros_like=T.fp2_zeros_like,
+    ones_like=T.fp2_ones_like)
+
+
+def _leaf(x):
+    while isinstance(x, tuple):
+        x = x[0]
+    return x
+
+
+def _tmap(fn, *trees):
+    """fn over the leaf tensors of equally nested tuples."""
+    if isinstance(trees[0], tuple):
+        return tuple(_tmap(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+class DevCurve:
+    """y^2 = x^3 + b over the field `f`, Jacobian coordinates (the JAX
+    DevCurve)."""
+
+    def __init__(self, f: FieldFns, name: str):
+        self.f = f
+        self.name = name
 
     # -- constructors --------------------------------------------------------
 
-    @staticmethod
-    def infinity_like(x):
-        one = L.ones_like(x)
-        return (one, one, x.new_zeros(x.shape))
+    def infinity_like(self, x):
+        """Infinity (1, 1, 0) with the batch shape of leaf tensor x."""
+        one = self.f.ones_like(x)
+        return (one, one, self.f.zeros_like(x))
 
-    @staticmethod
-    def is_infinity(p):
-        return L.is_zero(p[2])
+    def is_infinity(self, p):
+        return self.f.is_zero(p[2])
 
     # -- group law -----------------------------------------------------------
 
-    @staticmethod
-    def double(p):
+    def double(self, p):
         """Branchless Jacobian doubling; maps infinity to infinity."""
+        f = self.f
         X1, Y1, Z1 = p
-        A, B, t = L.mul_many([(X1, X1), (Y1, Y1), (Y1, Z1)])
-        XB = L.add_mod(X1, B)
-        C, U = L.mul_many([(B, B), (XB, XB)])
-        D = L.sub_mod(L.sub_mod(U, A), C)
-        D = L.add_mod(D, D)
-        E = L.add_mod(L.add_mod(A, A), A)
-        (Fv,) = L.mul_many([(E, E)])
-        X3 = L.sub_mod(Fv, L.add_mod(D, D))
-        (Y3a,) = L.mul_many([(E, L.sub_mod(D, X3))])
-        C2 = L.add_mod(C, C)
-        C4 = L.add_mod(C2, C2)
-        Y3 = L.sub_mod(Y3a, L.add_mod(C4, C4))
-        Z3 = L.add_mod(t, t)
+        A, B, t = f.mul_many([(X1, X1), (Y1, Y1), (Y1, Z1)])
+        XB = f.add(X1, B)
+        C, U = f.mul_many([(B, B), (XB, XB)])
+        D = f.sub(f.sub(U, A), C)
+        D = f.add(D, D)
+        E = f.add(f.add(A, A), A)
+        (Fv,) = f.mul_many([(E, E)])
+        X3 = f.sub(Fv, f.add(D, D))
+        (Y3a,) = f.mul_many([(E, f.sub(D, X3))])
+        C2 = f.add(C, C)
+        C4 = f.add(C2, C2)
+        Y3 = f.sub(Y3a, f.add(C4, C4))
+        Z3 = f.add(t, t)
         return (X3, Y3, Z3)
 
-    @classmethod
-    def add(cls, p, q):
+    def add(self, p, q):
         """Complete Jacobian addition: handles inf operands, P==Q, P==-Q."""
+        f = self.f
         X1, Y1, Z1 = p
         X2, Y2, Z2 = q
-        Z12 = L.add_mod(Z1, Z2)
-        Z1Z1, Z2Z2, ZS, dA, dB, dt = L.mul_many(
+        Z12 = f.add(Z1, Z2)
+        Z1Z1, Z2Z2, ZS, dA, dB, dt = f.mul_many(
             [(Z1, Z1), (Z2, Z2), (Z12, Z12), (X1, X1), (Y1, Y1), (Y1, Z1)])
-        XB = L.add_mod(X1, dB)
-        U1, U2, t1, t2, dC, dU = L.mul_many(
+        XB = f.add(X1, dB)
+        U1, U2, t1, t2, dC, dU = f.mul_many(
             [(X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1), (dB, dB),
              (XB, XB)])
-        dD = L.sub_mod(L.sub_mod(dU, dA), dC)
-        dD = L.add_mod(dD, dD)
-        dE = L.add_mod(L.add_mod(dA, dA), dA)
-        S1, S2, dFv = L.mul_many([(Y1, t1), (Y2, t2), (dE, dE)])
-        H = L.sub_mod(U2, U1)
-        HH = L.add_mod(H, H)
-        rr = L.sub_mod(S2, S1)
-        rr = L.add_mod(rr, rr)
-        dX3 = L.sub_mod(dFv, L.add_mod(dD, dD))
-        I, dY3a = L.mul_many([(HH, HH), (dE, L.sub_mod(dD, dX3))])
-        dC2 = L.add_mod(dC, dC)
-        dC4 = L.add_mod(dC2, dC2)
-        dY3 = L.sub_mod(dY3a, L.add_mod(dC4, dC4))
-        dZ3 = L.add_mod(dt, dt)
-        J, V, RR, Z3 = L.mul_many(
-            [(H, I), (U1, I), (rr, rr),
-             (L.sub_mod(L.sub_mod(ZS, Z1Z1), Z2Z2), H)])
-        X3 = L.sub_mod(L.sub_mod(RR, J), L.add_mod(V, V))
-        Y3a, S1J = L.mul_many([(rr, L.sub_mod(V, X3)), (S1, J)])
-        Y3 = L.sub_mod(Y3a, L.add_mod(S1J, S1J))
+        dD = f.sub(f.sub(dU, dA), dC)
+        dD = f.add(dD, dD)
+        dE = f.add(f.add(dA, dA), dA)
+        S1, S2, dFv = f.mul_many([(Y1, t1), (Y2, t2), (dE, dE)])
+        H = f.sub(U2, U1)
+        HH = f.add(H, H)
+        rr = f.sub(S2, S1)
+        rr = f.add(rr, rr)
+        dX3 = f.sub(dFv, f.add(dD, dD))
+        I, dY3a = f.mul_many([(HH, HH), (dE, f.sub(dD, dX3))])
+        dC2 = f.add(dC, dC)
+        dC4 = f.add(dC2, dC2)
+        dY3 = f.sub(dY3a, f.add(dC4, dC4))
+        dZ3 = f.add(dt, dt)
+        J, V, RR, Z3 = f.mul_many(
+            [(H, I), (U1, I), (rr, rr), (f.sub(f.sub(ZS, Z1Z1), Z2Z2), H)])
+        X3 = f.sub(f.sub(RR, J), f.add(V, V))
+        Y3a, S1J = f.mul_many([(rr, f.sub(V, X3)), (S1, J)])
+        Y3 = f.sub(Y3a, f.add(S1J, S1J))
         out = (X3, Y3, Z3)
 
-        inf1 = cls.is_infinity(p)
-        inf2 = cls.is_infinity(q)
-        same_x = L.eq(U1, U2) & ~inf1 & ~inf2
-        same_y = L.eq(S1, S2)
+        inf1 = self.is_infinity(p)
+        inf2 = self.is_infinity(q)
+        same_x = f.eq(U1, U2) & ~inf1 & ~inf2
+        same_y = f.eq(S1, S2)
         dbl = (dX3, dY3, dZ3)
-        infp = cls.infinity_like(X3)
-        out = cls.select(same_x & same_y, dbl, out)
-        out = cls.select(same_x & ~same_y, infp, out)
-        out = cls.select(inf1, q, out)
-        out = cls.select(inf2, p, out)
+        infp = self.infinity_like(_leaf(X3))
+        out = self.select(same_x & same_y, dbl, out)
+        out = self.select(same_x & ~same_y, infp, out)
+        out = self.select(inf1, q, out)
+        out = self.select(inf2, p, out)
         return out
 
-    @classmethod
-    def add_mixed(cls, p, q_aff):
+    def add_mixed(self, p, q_aff):
         """Complete mixed addition: q = (X2, Y2) affine, never infinity.
         Z2 = 1 drops 5 of the complete add's 23 staged products; the P == Q
         doubling and the infinite accumulator stay select-based, in the
         JAX package's order of precedence."""
+        f = self.f
         X1, Y1, Z1 = p
         X2, Y2 = q_aff
-        Z1Z1, dA, dB, dt = L.mul_many(
+        Z1Z1, dA, dB, dt = f.mul_many(
             [(Z1, Z1), (X1, X1), (Y1, Y1), (Y1, Z1)])
-        XB = L.add_mod(X1, dB)
-        U2, t2, dC, dU = L.mul_many(
+        XB = f.add(X1, dB)
+        U2, t2, dC, dU = f.mul_many(
             [(X2, Z1Z1), (Z1, Z1Z1), (dB, dB), (XB, XB)])
-        dD = L.sub_mod(L.sub_mod(dU, dA), dC)
-        dD = L.add_mod(dD, dD)
-        dE = L.add_mod(L.add_mod(dA, dA), dA)
-        S2, dFv = L.mul_many([(Y2, t2), (dE, dE)])
-        H = L.sub_mod(U2, X1)
-        HH = L.add_mod(H, H)
-        rr = L.sub_mod(S2, Y1)
-        rr = L.add_mod(rr, rr)
-        dX3 = L.sub_mod(dFv, L.add_mod(dD, dD))
-        I, dY3a = L.mul_many([(HH, HH), (dE, L.sub_mod(dD, dX3))])
-        dC2 = L.add_mod(dC, dC)
-        dC4 = L.add_mod(dC2, dC2)
-        dY3 = L.sub_mod(dY3a, L.add_mod(dC4, dC4))
-        dZ3 = L.add_mod(dt, dt)
-        J, V, RR, Z3 = L.mul_many([(H, I), (X1, I), (rr, rr), (Z1, HH)])
-        X3 = L.sub_mod(L.sub_mod(RR, J), L.add_mod(V, V))
-        Y3a, S1J = L.mul_many([(rr, L.sub_mod(V, X3)), (Y1, J)])
-        Y3 = L.sub_mod(Y3a, L.add_mod(S1J, S1J))
+        dD = f.sub(f.sub(dU, dA), dC)
+        dD = f.add(dD, dD)
+        dE = f.add(f.add(dA, dA), dA)
+        S2, dFv = f.mul_many([(Y2, t2), (dE, dE)])
+        H = f.sub(U2, X1)
+        HH = f.add(H, H)
+        rr = f.sub(S2, Y1)
+        rr = f.add(rr, rr)
+        dX3 = f.sub(dFv, f.add(dD, dD))
+        I, dY3a = f.mul_many([(HH, HH), (dE, f.sub(dD, dX3))])
+        dC2 = f.add(dC, dC)
+        dC4 = f.add(dC2, dC2)
+        dY3 = f.sub(dY3a, f.add(dC4, dC4))
+        dZ3 = f.add(dt, dt)
+        J, V, RR, Z3 = f.mul_many([(H, I), (X1, I), (rr, rr), (Z1, HH)])
+        X3 = f.sub(f.sub(RR, J), f.add(V, V))
+        Y3a, S1J = f.mul_many([(rr, f.sub(V, X3)), (Y1, J)])
+        Y3 = f.sub(Y3a, f.add(S1J, S1J))
         out = (X3, Y3, Z3)
 
-        inf1 = cls.is_infinity(p)
-        same_x = L.eq(U2, X1) & ~inf1
-        same_y = L.eq(S2, Y1)
+        inf1 = self.is_infinity(p)
+        same_x = f.eq(U2, X1) & ~inf1
+        same_y = f.eq(S2, Y1)
         dbl = (dX3, dY3, dZ3)
-        out = cls.select(same_x & same_y, dbl, out)
-        out = cls.select(same_x & ~same_y, cls.infinity_like(X3), out)
-        out = cls.select(inf1, (X2, Y2, L.ones_like(X3)), out)
+        leaf = _leaf(X3)
+        out = self.select(same_x & same_y, dbl, out)
+        out = self.select(same_x & ~same_y, self.infinity_like(leaf), out)
+        out = self.select(inf1, (X2, Y2, f.ones_like(leaf)), out)
         return out
 
-    @staticmethod
-    def batch_inverse(z):
+    def batch_inverse(self, z):
         """Simultaneous inversion over the leading axis: one Fermat chain
         (K1 at one lane) and about 3 products per element through a
         tree-shaped Montgomery trick, every level one wide product.
         0 -> 0."""
-        zero = L.is_zero(z)
-        z = L.select(zero, L.ones_like(z), z)
+        f = self.f
+        cat = lambda *ts: _tmap(lambda *xs: torch.cat(xs, 0), *ts)
+        cut = lambda t, lo, hi=None: _tmap(lambda x: x[lo:hi], t)
+        zero = f.is_zero(z)
+        z = f.select(zero, f.ones_like(_leaf(z)), z)
         levels = []
         cur = z
-        while cur.shape[0] > 1:
-            n = cur.shape[0]
+        while _leaf(cur).shape[0] > 1:
+            n = _leaf(cur).shape[0]
             half = n // 2
             levels.append((cur, half, n))
-            (prod,) = L.mul_many([(cur[:half], cur[half:2 * half])])
+            (prod,) = f.mul_many([(cut(cur, 0, half), cut(cur, half,
+                                                          2 * half))])
             if n % 2:
-                prod = torch.cat([prod, cur[2 * half:]], 0)
+                prod = cat(prod, cut(cur, 2 * half))
             cur = prod
-        inv = L.inv_mod(cur)
+        inv = f.inv(cur)
         for cur_lvl, half, n in reversed(levels):
-            a, b = cur_lvl[:half], cur_lvl[half:2 * half]
-            pinv = inv[:half]
-            ia, ib = L.mul_many([(pinv, b), (pinv, a)])
-            out = torch.cat([ia, ib], 0)
+            a, b = cut(cur_lvl, 0, half), cut(cur_lvl, half, 2 * half)
+            pinv = cut(inv, 0, half)
+            ia, ib = f.mul_many([(pinv, b), (pinv, a)])
+            out = cat(ia, ib)
             if n % 2:
-                out = torch.cat([out, inv[half:]], 0)
+                out = cat(out, cut(inv, half))
             inv = out
-        return L.select(zero, torch.zeros_like(inv), inv)
+        return f.select(zero, f.zeros_like(_leaf(inv)), inv)
 
-    @classmethod
-    def to_affine_batch(cls, p):
+    def to_affine_batch(self, p):
         """to_affine over the leading axis with one shared inversion
         (batch_inverse).  Returns (x, y, is_inf); infinity maps to
         (0, 0, True)."""
+        f = self.f
         X1, Y1, Z1 = p
-        zi = cls.batch_inverse(Z1)
-        zi2 = L.mont_sqr(zi)
-        x, zi3 = L.mul_many([(X1, zi2), (zi2, zi)])
-        (y,) = L.mul_many([(Y1, zi3)])
-        return (x, y, cls.is_infinity(p))
+        zi = self.batch_inverse(Z1)
+        zi2 = f.sqr(zi)
+        x, zi3 = f.mul_many([(X1, zi2), (zi2, zi)])
+        (y,) = f.mul_many([(Y1, zi3)])
+        return (x, y, self.is_infinity(p))
 
-    @staticmethod
-    def neg(p):
-        return (p[0], L.neg_mod(p[1]), p[2])
+    def neg(self, p):
+        return (p[0], self.f.neg(p[1]), p[2])
 
-    @staticmethod
-    def select(cond, a, b):
-        return tuple(L.select(cond, x, y) for x, y in zip(a, b))
+    def select(self, cond, a, b):
+        return tuple(self.f.select(cond, x, y) for x, y in zip(a, b))
 
-    @classmethod
-    def to_affine(cls, p):
+    def to_affine(self, p):
         """Returns (x, y, is_inf).  Infinity maps to (0, 0, True)."""
+        f = self.f
         X1, Y1, Z1 = p
-        zi = L.inv_mod(Z1)              # 0 for infinity -> coords come out 0
-        zi2 = L.mont_sqr(zi)
-        return (L.mont_mul(X1, zi2), L.mont_mul(Y1, L.mont_mul(zi2, zi)),
-                cls.is_infinity(p))
+        zi = f.inv(Z1)                  # 0 for infinity -> coords come out 0
+        zi2 = f.sqr(zi)
+        return (f.mul(X1, zi2), f.mul(Y1, f.mul(zi2, zi)),
+                self.is_infinity(p))
 
-    @classmethod
-    def eq_points(cls, p, q):
+    def eq_points(self, p, q):
         """Projective equality (both may be infinity)."""
+        f = self.f
         X1, Y1, Z1 = p
         X2, Y2, Z2 = q
-        Z1Z1, Z2Z2 = L.mul_many([(Z1, Z1), (Z2, Z2)])
-        a, b, t1, t2 = L.mul_many(
+        Z1Z1, Z2Z2 = f.mul_many([(Z1, Z1), (Z2, Z2)])
+        a, b, t1, t2 = f.mul_many(
             [(X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1)])
-        c, d = L.mul_many([(Y1, t1), (Y2, t2)])
-        same = L.eq(a, b) & L.eq(c, d)
-        both_inf = cls.is_infinity(p) & cls.is_infinity(q)
-        one_inf = cls.is_infinity(p) ^ cls.is_infinity(q)
+        c, d = f.mul_many([(Y1, t1), (Y2, t2)])
+        same = f.eq(a, b) & f.eq(c, d)
+        both_inf = self.is_infinity(p) & self.is_infinity(q)
+        one_inf = self.is_infinity(p) ^ self.is_infinity(q)
         return (same | both_inf) & ~one_inf
 
-    @classmethod
-    def scalar_mul_fixed(cls, p, k: int):
+    def scalar_mul_fixed(self, p, k: int):
         """k*P for a static python-int scalar: kernel K2 (|k| ladder, then a
         negation for k < 0)."""
         from . import kernels
         if k == 0:
-            return cls.infinity_like(p[0])
+            return self.infinity_like(_leaf(p[0]))
         res = kernels.scalar_mul_fixed(p, abs(k))
-        return cls.neg(res) if k < 0 else res
+        return self.neg(res) if k < 0 else res
 
 
-G1 = DevCurve()
+G1 = DevCurve(FP_FNS, "G1")
+G2 = DevCurve(FP2_FNS, "G2")
 
+
+def _cat_lanes(*pts):
+    return _tmap(lambda *xs: torch.cat(xs, 0), *pts)
+
+
+# ---------------------------------------------------------------------------
+# G1 endomorphism phi, subgroup check, cofactor clearing, GLV terms
+# ---------------------------------------------------------------------------
 
 def g1_phi(p):
     X1, Y1, Z1 = p
     return (L.mont_mul(L.mont_const(_BETA, X1.device), X1), Y1, Z1)
-
-
-def _cat_lanes(*pts):
-    return tuple(torch.cat(cs, 0) for cs in zip(*pts))
 
 
 def g1_phi_lanes(p):
@@ -281,6 +333,99 @@ def g1_clear_cofactor(p):
     return G1.scalar_mul_fixed(p, 1 - BLS_X)
 
 
+# ---------------------------------------------------------------------------
+# G2 endomorphisms psi and psi^2, subgroup check, cofactor clearing, GLV
+# ---------------------------------------------------------------------------
+
+# psi on the D-twist: psi(x, y) = (c_x * conj(x), c_y * conj(y)); on Jacobian
+# coordinates psi(X, Y, Z) = (c_x*conj(X), c_y*conj(Y), conj(Z)).
+_PSI_CX = HF.fp2_inv(HF.fp2_pow(HF.XI, (FP_P - 1) // 3))
+_PSI_CY = HF.fp2_inv(HF.fp2_pow(HF.XI, (FP_P - 1) // 2))
+# psi^2 scales affine coordinates by Fp constants n = c * conj(c) (the
+# norms land in Fp); its eigenvalue on G2 is x^2.
+_PSI2_NX = HF.fp2_mul(_PSI_CX, HF.fp2_conj(_PSI_CX))
+_PSI2_NY = HF.fp2_mul(_PSI_CY, HF.fp2_conj(_PSI_CY))
+assert _PSI2_NX[1] == 0 and _PSI2_NY[1] == 0
+_PSI2_NX, _PSI2_NY = _PSI2_NX[0], _PSI2_NY[0]
+
+
+def _fp2_const(c, device):
+    return (L.mont_const(c[0], device), L.mont_const(c[1], device))
+
+
+def g2_psi(p):
+    X2, Y2, Z2 = p
+    dev = _leaf(X2).device
+    x, y = T.fp2_mul_many([(_fp2_const(_PSI_CX, dev), T.fp2_conj(X2)),
+                           (_fp2_const(_PSI_CY, dev), T.fp2_conj(Y2))])
+    return (x, y, T.fp2_conj(Z2))
+
+
+def _psi2_affine_scale(x, y):
+    """(n_x*x, n_y*y): psi^2 on Fp2 coordinates, four Fp products."""
+    dev = x[0].device
+    nx, ny = L.mont_const(_PSI2_NX, dev), L.mont_const(_PSI2_NY, dev)
+    r = L.mul_many([(x[0], nx), (x[1], nx), (y[0], ny), (y[1], ny)])
+    return (r[0], r[1]), (r[2], r[3])
+
+
+def g2_psi2(p):
+    """psi o psi on Jacobian coordinates: Fp scalings of X and Y, Z kept."""
+    x, y = _psi2_affine_scale(p[0], p[1])
+    return (x, y, p[2])
+
+
+def g2_psi_lanes(p):
+    """[P, psi P, psi^2 P, psi^3 P] concatenated along the leading axis."""
+    p2 = g2_psi2(p)
+    return _cat_lanes(p, g2_psi(p), p2, g2_psi(p2))
+
+
+def g2_glv_msm_terms(p, bits0, bits1):
+    """(k0 + x^2*k1)-weighted G2 points for the RLC (x^2 the psi^2
+    eigenvalue); bits MSB-first, (nbits,) + batch, 32 bits when the caller
+    splits the 128-bit coefficient four ways across psi by lane
+    duplication (crypto/batch.py).
+
+    The route of the JAX package's Pallas engine
+    (pallas_field.scalar_mul_glv_g2): psi^2(Q) as Jacobian, Q + psi^2(Q) by
+    a complete add, ONE to_affine_batch over Q and Q + psi^2(Q), psi^2's
+    affine table (n_x x, n_y y), the joint ladder (kernel K8, G2 instance)
+    and infinity restored for infinite inputs."""
+    from . import kernels
+    p3_jac = G2.add(p, g2_psi2(p))
+    ax, ay, _ = G2.to_affine_batch(_cat_lanes(p, p3_jac))
+    n = _leaf(p[0]).shape[0]
+    lo = lambda c: _tmap(lambda t: t[:n], c)
+    hi = lambda c: _tmap(lambda t: t[n:], c)
+    pt, p3 = (lo(ax), lo(ay)), (hi(ax), hi(ay))
+    psi2 = _psi2_affine_scale(*pt)
+    out = kernels.scalar_mul_glv_mixed(pt, psi2, p3, bits0, bits1)
+    return G2.select(G2.is_infinity(p), G2.infinity_like(_leaf(p[0])), out)
+
+
+def g2_in_subgroup(p):
+    """Q in G2 <=> psi(Q) == [x]Q (batch).  Infinity counts as member."""
+    return G2.eq_points(g2_psi(p), G2.scalar_mul_fixed(p, BLS_X))
+
+
+def g2_clear_cofactor(p):
+    """Budroni-Pintore: [x^2-x-1]P + [x-1]psi(P) + psi^2(2P), exactly
+    h_eff*P for the RFC 9380 G2 suite (three K2 |x| ladders)."""
+    xP = G2.scalar_mul_fixed(p, BLS_X)
+    x2P = G2.scalar_mul_fixed(xP, BLS_X)
+    t = G2.add(x2P, G2.neg(xP))               # (x^2 - x) P
+    t = G2.add(t, G2.neg(p))                  # (x^2 - x - 1) P
+    u = g2_psi(G2.add(xP, G2.neg(p)))         # psi((x - 1) P)
+    t = G2.add(t, u)
+    v = g2_psi(g2_psi(G2.double(p)))          # psi^2(2P)
+    return G2.add(t, v)
+
+
+# ---------------------------------------------------------------------------
+# Host <-> tensor points
+# ---------------------------------------------------------------------------
+
 def encode_g1_points(pts, device="cpu"):
     """Host affine G1 points (or None) -> batched Jacobian point."""
     xs, ys, zs = [], [], []
@@ -291,6 +436,21 @@ def encode_g1_points(pts, device="cpu"):
             xs.append(pt[0]); ys.append(pt[1]); zs.append(1)
     return (L.encode_mont(xs, device), L.encode_mont(ys, device),
             L.encode_mont(zs, device))
+
+
+def encode_g2_points(pts, device="cpu"):
+    """Host affine G2 points (or None) -> batched Jacobian point."""
+    cols = [[] for _ in range(6)]
+    for pt in pts:
+        if pt is None:
+            vals = (1, 0, 1, 0, 0, 0)
+        else:
+            (x0, x1), (y0, y1) = pt
+            vals = (x0, x1, y0, y1, 1, 0)
+        for c, v in zip(cols, vals):
+            c.append(v)
+    e = [L.encode_mont(c, device) for c in cols]
+    return ((e[0], e[1]), (e[2], e[3]), (e[4], e[5]))
 
 
 def decode_g1_points(p):
@@ -304,4 +464,19 @@ def decode_g1_points(p):
         zi = pow(z, FP_P - 2, FP_P)
         zi2 = zi * zi % FP_P
         out.append((x * zi2 % FP_P, y * zi2 * zi % FP_P))
+    return out
+
+
+def decode_g2_points(p):
+    """Batched Jacobian G2 point -> host affine list (None = infinity)."""
+    cols = [L.decode_mont(c) for coord in p for c in coord]
+    out = []
+    for x0, x1, y0, y1, z0, z1 in zip(*cols):
+        if (z0, z1) == (0, 0):
+            out.append(None)
+            continue
+        zi = HF.fp2_inv((z0, z1))
+        zi2 = HF.fp2_mul(zi, zi)
+        out.append((HF.fp2_mul((x0, x1), zi2),
+                    HF.fp2_mul((y0, y1), HF.fp2_mul(zi2, zi))))
     return out

@@ -1,24 +1,30 @@
 """The port's Hopper kernels: build, binding, wrappers and plain versions.
 
-Counterpart of drand_tpu/ops/pallas_field.py.  Six TPU kernels of the
-short-signature verification path (the RLC pass and the exact pass) have a
-hand-written CUDA C++ kernel (sources in ``csrc/``, target ``sm_90a``):
+Counterpart of drand_tpu/ops/pallas_field.py.  Every TPU kernel of the
+beacon verification paths (the RLC pass and the exact pass, both signature
+groups) has a hand-written CUDA C++ kernel (sources in ``csrc/``, target
+``sm_90a``):
 
   K1 pow_fixed         <- pallas_field._pow_call          (csrc/pow.cu)
-  K2 scalar_mul_fixed  <- pallas_field._ladder_fixed_call (csrc/ladder.cu, G1)
+  K2 scalar_mul_fixed  <- pallas_field._ladder_fixed_call (csrc/ladder.cu,
+                                                           G1 and G2)
   K3 miller_loop       <- pallas_field._miller_call       (csrc/miller.cu)
   K4 final_exponentiation <- pallas_field._finalexp_call  (csrc/finalexp.cu)
-  K7 sum_tiles         <- pallas_field._sum_call          (csrc/sum.cu, G1)
+  K5 pow_fixed_fp2     <- pallas_field._pow2_call         (csrc/pow2.cu)
+  K7 sum_tiles         <- pallas_field._sum_call          (csrc/sum.cu,
+                                                           G1 and G2)
   K8 scalar_mul_glv_mixed <- pallas_field._ladder_glv_mixed_call
-                                                          (csrc/glv.cu, G1)
+                                                   (csrc/glv.cu, G1 and G2)
 
-Each wrapper takes the plain engine's ``(..., 24)`` int64 Montgomery limbs.
+Each wrapper takes the plain engine's ``(..., 24)`` int64 Montgomery limbs
+(a G2 point: Fp2 pairs of them, and the wrapper dispatches on that arity).
 On a CPU tensor it runs the plain PyTorch version beside it (the loops of
-limbs.py, curve.py and pairing.py); on a CUDA tensor it launches the kernel
-and raises if the launch fails.  There is no fallback from one to the other.
-``LAUNCHES`` counts kernel launches per wrapper, ``SHAPES`` the same launches
-per (wrapper, static exponent, scalar or ladder bit count, lanes); plain runs
-count in neither.
+limbs.py, tower.py, curve.py and pairing.py); on a CUDA tensor it launches
+the kernel and raises if the launch fails.  There is no fallback from one
+to the other.  ``LAUNCHES`` counts kernel launches per wrapper and curve
+(the G2 instances under their own ``_g2`` names), ``SHAPES`` the same
+launches per (name, static exponent, scalar or ladder bit count, lanes);
+plain runs count in neither.
 
 Build: every ``csrc/*.cu`` compiles with its own ``nvcc -c`` (all started
 together), then one ``nvcc -shared`` links a plain-C shared library, loaded
@@ -42,7 +48,7 @@ import torch
 
 from . import limbs as L
 from . import tower as T
-from .curve import G1
+from .curve import G1, G2, _leaf, _tmap
 from ..crypto.host.params import P, B2, X as BLS_X
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -52,7 +58,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"pow_fixed": 0, "scalar_mul_fixed": 0, "miller_loop": 0,
             "final_exponentiation": 0, "sum_tiles": 0,
-            "scalar_mul_glv_mixed": 0}
+            "scalar_mul_glv_mixed": 0, "pow_fixed_fp2": 0,
+            "scalar_mul_fixed_g2": 0, "sum_tiles_g2": 0,
+            "scalar_mul_glv_mixed_g2": 0}
 # (wrapper, exponent / scalar / ladder bits / None, lanes)
 SHAPES = collections.Counter()
 
@@ -169,8 +177,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.drand_finalexp.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
     lib.drand_sum_g1.argtypes = [vp, vp, i64, vp]
     lib.drand_glv_g1.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_pow2.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_ladder_g2.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_sum_g2.argtypes = [vp, vp, i64, vp]
+    lib.drand_glv_g2.argtypes = [vp, vp, vp, i32, i64, vp]
     for fn in (lib.drand_pow, lib.drand_ladder_g1, lib.drand_miller,
-               lib.drand_finalexp, lib.drand_sum_g1, lib.drand_glv_g1):
+               lib.drand_finalexp, lib.drand_sum_g1, lib.drand_glv_g1,
+               lib.drand_pow2, lib.drand_ladder_g2, lib.drand_sum_g2,
+               lib.drand_glv_g2):
         fn.restype = ctypes.c_int
     return lib
 
@@ -276,35 +290,62 @@ def pow_fixed(a, e: int):
 
 
 # ---------------------------------------------------------------------------
-# K2: G1 scalar multiplication by a fixed scalar
+# Points of either curve: G1 has 3 Fp coordinates, G2 3 Fp2 coordinates
+# ---------------------------------------------------------------------------
+
+def _is_g2(p) -> bool:
+    return isinstance(p[0], tuple)
+
+
+def _curve(p):
+    return G2 if _is_g2(p) else G1
+
+
+def _flat(p):
+    """A point (or affine table) -> its list of Fp leaf tensors."""
+    return [x for c in p for x in (c if isinstance(c, tuple) else (c,))]
+
+
+def _unflat(leaves, g2: bool):
+    if not g2:
+        return tuple(leaves)
+    return tuple((leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2))
+
+
+# ---------------------------------------------------------------------------
+# K2: scalar multiplication by a fixed scalar, G1 and G2
 # ---------------------------------------------------------------------------
 
 def scalar_mul_fixed_plain(p, k: int):
     """Double-and-add MSB-first from infinity; zero bits skip the add
-    (pallas_field._ladder_fixed_math over curve.DevCurve)."""
-    acc = G1.infinity_like(p[0])
+    (pallas_field._ladder_fixed_math over curve.DevCurve, either curve)."""
+    curve = _curve(p)
+    acc = curve.infinity_like(_leaf(p[0]))
     for bit in L.exp_bits(k):
-        acc = G1.double(acc)
+        acc = curve.double(acc)
         if bit:
-            acc = G1.add(acc, p)
+            acc = curve.add(acc, p)
     return acc
 
 
 def scalar_mul_fixed(p, k: int):
-    """k*P on G1 for a static k >= 1 (Jacobian Montgomery limbs)."""
+    """k*P for a static k >= 1 (Jacobian Montgomery limbs; a G1 or a G2
+    point, told apart by the arity of its coordinates)."""
     assert k >= 1
-    if not _on_card(p[0]):
+    leaves = _flat(p)
+    if not _on_card(leaves[0]):
         return scalar_mul_fixed_plain(p, k)
-    shape = torch.broadcast_shapes(*(c.shape for c in p))[:-1]
-    x = to_words([c.expand(shape + (L.NLIMB,)) for c in p])
+    g2 = _is_g2(p)
+    shape = torch.broadcast_shapes(*(c.shape for c in leaves))[:-1]
+    x = to_words([c.expand(shape + (L.NLIMB,)) for c in leaves])
     out = torch.empty_like(x)
-    bits = bits_tensor(tuple(L.exp_bits(k)), str(p[0].device))
-    _check(_lib().drand_ladder_g1(x.data_ptr(), out.data_ptr(),
-                                  bits.data_ptr(), bits.numel(), x.shape[-1],
-                                  _stream(p[0].device)),
-           "scalar_mul_fixed")
-    _count("scalar_mul_fixed", k, x.shape[-1])
-    return tuple(from_words(out, shape))
+    bits = bits_tensor(tuple(L.exp_bits(k)), str(x.device))
+    fn = _lib().drand_ladder_g2 if g2 else _lib().drand_ladder_g1
+    name = "scalar_mul_fixed_g2" if g2 else "scalar_mul_fixed"
+    _check(fn(x.data_ptr(), out.data_ptr(), bits.data_ptr(), bits.numel(),
+              x.shape[-1], _stream(x.device)), name)
+    _count(name, k, x.shape[-1])
+    return _unflat(from_words(out, shape), g2)
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +486,37 @@ def final_exponentiation(f):
 
 
 # ---------------------------------------------------------------------------
+# K5: Fp2 pow by a fixed exponent
+# ---------------------------------------------------------------------------
+
+def pow_fixed_fp2_plain(a, e: int):
+    """Square-and-multiply MSB-first from 1 in Fp2; zero bits skip the
+    multiply (pallas_field._pow2_math)."""
+    acc = T.fp2_ones_like(a[0])
+    for bit in L.exp_bits(e):
+        acc = T.fp2_sqr(acc)
+        if bit:
+            acc = T.fp2_mul(acc, a)
+    return acc
+
+
+def pow_fixed_fp2(a, e: int):
+    """a^e in Fp2 for a static exponent e >= 1 (an Fp2 pair of Montgomery
+    limb tensors in and out)."""
+    if not _on_card(a[0]):
+        return pow_fixed_fp2_plain(a, e)
+    shape = torch.broadcast_shapes(a[0].shape, a[1].shape)[:-1]
+    x = to_words([c.expand(shape + (L.NLIMB,)) for c in a])
+    out = torch.empty_like(x)
+    bits = bits_tensor(tuple(L.exp_bits(e)), str(x.device))
+    _check(_lib().drand_pow2(x.data_ptr(), out.data_ptr(), bits.data_ptr(),
+                             bits.numel(), x.shape[-1], _stream(x.device)),
+           "pow_fixed_fp2")
+    _count("pow_fixed_fp2", e, x.shape[-1])
+    return tuple(from_words(out, shape))
+
+
+# ---------------------------------------------------------------------------
 # K7: per-tile point sum
 # ---------------------------------------------------------------------------
 
@@ -453,60 +525,67 @@ def sum_tiles_plain(p):
     sh = TILE/2, ..., 1 (lane i of the tile += lane i + sh).  Lane 0 of
     pallas_field._sum_tile_math's rotate-and-add reads only lanes i + sh
     < 2 sh, so it is this same association of complete adds."""
-    pts = tuple(c.reshape(-1, TILE, L.NLIMB) for c in p)
+    curve = _curve(p)
+    pts = _tmap(lambda c: c.reshape(-1, TILE, L.NLIMB), p)
     sh = TILE // 2
     while sh >= 1:
-        pts = G1.add(tuple(c[:, :sh] for c in pts),
-                     tuple(c[:, sh:2 * sh] for c in pts))
+        pts = curve.add(_tmap(lambda c: c[:, :sh], pts),
+                        _tmap(lambda c: c[:, sh:2 * sh], pts))
         sh //= 2
-    return tuple(c[:, 0] for c in pts)
+    return _tmap(lambda c: c[:, 0], pts)
 
 
 def sum_tiles(p):
-    """G1 Jacobian points (B, 24), B a multiple of TILE -> the sum of each
-    tile, (B / TILE, 24) per coordinate."""
-    if p[0].shape[0] % TILE:
+    """Jacobian points of either curve, (B, 24) limbs per Fp coordinate, B
+    a multiple of TILE -> the sum of each tile, (B / TILE, 24) each."""
+    leaves = _flat(p)
+    if leaves[0].shape[0] % TILE:
         raise ValueError(f"sum_tiles needs a multiple of {TILE} lanes, "
-                         f"got {p[0].shape[0]}")
-    if not _on_card(p[0]):
+                         f"got {leaves[0].shape[0]}")
+    if not _on_card(leaves[0]):
         return sum_tiles_plain(p)
-    x = to_words(p)
+    g2 = _is_g2(p)
+    x = to_words(leaves)
     n = x.shape[-1]
-    out = torch.empty((3, 12, n // TILE), dtype=torch.int32, device=x.device)
-    _check(_lib().drand_sum_g1(x.data_ptr(), out.data_ptr(), n,
-                               _stream(x.device)), "sum_tiles")
-    _count("sum_tiles", None, n)
-    return tuple(from_words(out, (n // TILE,)))
+    out = torch.empty((len(leaves), 12, n // TILE), dtype=torch.int32,
+                      device=x.device)
+    fn = _lib().drand_sum_g2 if g2 else _lib().drand_sum_g1
+    name = "sum_tiles_g2" if g2 else "sum_tiles"
+    _check(fn(x.data_ptr(), out.data_ptr(), n, _stream(x.device)), name)
+    _count(name, None, n)
+    return _unflat(from_words(out, (n // TILE,)), g2)
 
 
 def _pad_lanes(p, lanes: int):
     """Zero-pad a point batch to `lanes` lanes; an all-zero lane has Z = 0
     and reads as infinity."""
-    n = p[0].shape[0]
+    n = _leaf(p[0]).shape[0]
     if n == lanes:
         return p
-    return tuple(torch.cat([c, c.new_zeros((lanes - n, L.NLIMB))], 0)
-                 for c in p)
+    return _tmap(lambda c: torch.cat([c, c.new_zeros((lanes - n, L.NLIMB))],
+                                     0), p)
 
 
 def sum_points(p):
-    """Sum a G1 point batch over its leading axis (pallas_field.sum_points).
+    """Sum a G1 or G2 point batch over its leading axis
+    (pallas_field.sum_points).
 
     Each K7 launch reduces every TILE-lane tile to one point; the per-tile
     partials, zero-padded, are the lanes of the next launch until one tile
     remains.  Two to four partials are folded in order with complete adds,
     as the JAX package folds them in XLA.  8192 lanes: two launches."""
-    n = p[0].shape[0]
+    curve = _curve(p)
+    n = _leaf(p[0]).shape[0]
     pts = _pad_lanes(p, max(TILE, -(-n // TILE) * TILE))
     while True:
         part = sum_tiles(pts)
-        ntiles = part[0].shape[0]
+        ntiles = _leaf(part[0]).shape[0]
         if ntiles == 1:
-            return tuple(c[0] for c in part)
+            return _tmap(lambda c: c[0], part)
         if ntiles <= 4:
-            acc = tuple(c[0] for c in part)
+            acc = _tmap(lambda c: c[0], part)
             for i in range(1, ntiles):
-                acc = G1.add(acc, tuple(c[i] for c in part))
+                acc = curve.add(acc, _tmap(lambda c: c[i], part))
             return acc
         pts = _pad_lanes(part, -(-ntiles // TILE) * TILE)
 
@@ -516,33 +595,40 @@ def sum_points(p):
 # ---------------------------------------------------------------------------
 
 def scalar_mul_glv_mixed_plain(pt, phi, p3, bits0, bits1):
-    """[k0]P + [k1]phi(P) from the affine tables {P, phi(P), P + phi(P)}:
-    from infinity, double every step, then mixed-add the entry the bit
-    pair selects where b0 | b1 (pallas_field._ladder_glv_mixed_math)."""
-    sel = lambda c, a, b: tuple(L.select(c, x, y) for x, y in zip(a, b))
-    acc = G1.infinity_like(pt[0])
+    """[k0]P + [k1]endo(P) from the affine tables {P, endo(P), P + endo(P)}
+    (endo = phi on G1, psi^2 on G2): from infinity, double every step, then
+    mixed-add the entry the bit pair selects where b0 | b1
+    (pallas_field._ladder_glv_mixed_math)."""
+    curve = _curve(pt)
+    acc = curve.infinity_like(_leaf(pt[0]))
     for i in range(bits0.shape[0]):
-        acc = G1.double(acc)
+        acc = curve.double(acc)
         b0, b1 = bits0[i] == 1, bits1[i] == 1
-        t = sel(b0, sel(b1, p3, pt), sel(b1, phi, pt))
-        acc = G1.select(b0 | b1, G1.add_mixed(acc, t), acc)
+        t = curve.select(b0, curve.select(b1, p3, pt),
+                         curve.select(b1, phi, pt))
+        acc = curve.select(b0 | b1, curve.add_mixed(acc, t), acc)
     return acc
 
 
 def scalar_mul_glv_mixed(pt, phi, p3, bits0, bits1):
-    """Joint GLV ladder: affine tables (x, y) of (B, 24) limbs and MSB-first
-    bit planes (nbits, B) -> a Jacobian point per lane."""
-    if not _on_card(pt[0]):
+    """Joint GLV ladder: affine tables (x, y) of (B, 24) limbs per Fp
+    coordinate (Fp2 pairs on G2) and MSB-first bit planes (nbits, B) -> a
+    Jacobian point per lane."""
+    leaves = _flat(pt) + _flat(phi) + _flat(p3)
+    if not _on_card(leaves[0]):
         return scalar_mul_glv_mixed_plain(pt, phi, p3, bits0, bits1)
-    shape = pt[0].shape[:-1]
-    x = to_words([*pt, *phi, *p3])
+    g2 = _is_g2(pt)
+    shape = leaves[0].shape[:-1]
+    x = to_words(leaves)
     n = x.shape[-1]
     nbits = bits0.shape[0]
     bits = torch.stack([bits0.reshape(nbits, n), bits1.reshape(nbits, n)]
                        ).to(device=x.device, dtype=torch.int32).contiguous()
-    out = torch.empty((3, 12, n), dtype=torch.int32, device=x.device)
-    _check(_lib().drand_glv_g1(x.data_ptr(), bits.data_ptr(), out.data_ptr(),
-                               nbits, n, _stream(x.device)),
-           "scalar_mul_glv_mixed")
-    _count("scalar_mul_glv_mixed", nbits, n)
-    return tuple(from_words(out, shape))
+    out = torch.empty((6 if g2 else 3, 12, n), dtype=torch.int32,
+                      device=x.device)
+    fn = _lib().drand_glv_g2 if g2 else _lib().drand_glv_g1
+    name = "scalar_mul_glv_mixed_g2" if g2 else "scalar_mul_glv_mixed"
+    _check(fn(x.data_ptr(), bits.data_ptr(), out.data_ptr(), nbits, n,
+              _stream(x.device)), name)
+    _count(name, nbits, n)
+    return _unflat(from_words(out, shape), g2)

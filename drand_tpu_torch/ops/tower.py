@@ -95,6 +95,16 @@ def fp2_inv(a, inv=L.inv_mod):
     return (r[0], L.neg_mod(r[1]))
 
 
+def fp2_pow_fixed(a, e: int):
+    """a^e in Fp2 for a static exponent: square-and-multiply MSB-first.
+    Chains of 64 bits or more (the G2 sqrt_ratio exponent (p^2-9)/16) are
+    kernel K5 (``kernels.pow_fixed_fp2``); shorter ones the plain loop."""
+    from . import kernels
+    if e.bit_length() >= 64:
+        return kernels.pow_fixed_fp2(a, e)
+    return kernels.pow_fixed_fp2_plain(a, e)
+
+
 def fp2_is_zero(a):
     return L.is_zero(a[0]) & L.is_zero(a[1])
 

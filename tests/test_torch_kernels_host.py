@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from drand_tpu_torch.crypto.host.curve import G1 as HG1
+from drand_tpu_torch.crypto.host.curve import G1 as HG1, G2 as HG2
 from drand_tpu_torch.crypto.host import field as HF
 from drand_tpu_torch.crypto.host.params import P, R, X
 from drand_tpu_torch.ops import curve as DC
@@ -208,3 +208,108 @@ def test_word_layout_round_trip():
     back = K.from_words(w, (7, 1))
     _same(back, [x, x.flip(0)])
     assert np.array_equal(K.const_rows()[0].numpy(), L.int_to_limbs(P))
+
+
+# ---------------------------------------------------------------------------
+# G2 instances: K5 (Fp2 pow), K2, K7 and K8 on G2
+# ---------------------------------------------------------------------------
+
+E2 = (P * P - 9) // 16
+
+
+def _rand_fp2(n):
+    return (_rand_fp(n), _rand_fp(n))
+
+
+@pytest.mark.parametrize("e", [E2, 5, 1], ids=["E2", "5", "1"])
+def test_pow2_kernel_matches_plain(kernel_path, e):
+    x = _rand_fp2(5)
+    x = tuple(torch.cat([L.encode_mont([0, 1, 0]), c]) for c in x)
+    x[1][2] = L.encode_mont(1)                         # lane 2 = u
+    got = K.pow_fixed_fp2(x, e)
+    assert kernel_path["pow_fixed_fp2"] == 1
+    assert K.SHAPES == {("pow_fixed_fp2", e, 8): 1}
+    _same(got, K.pow_fixed_fp2_plain(x, e))
+    vals = list(zip(*[L.decode_mont(c) for c in x]))
+    assert list(zip(*[L.decode_mont(c) for c in got])) == \
+        [HF.fp2_pow(v, e) for v in vals]
+
+
+def _g2_points():
+    """Members, an on-curve point outside G2, infinity and the generator."""
+    members = [HG2.mul(HG2.gen, RNG.randrange(1, R)) for _ in range(2)]
+    a = 1
+    while True:
+        xq = (a, 1)
+        yq = HF.fp2_sqrt(HF.fp2_add(HF.fp2_mul(HF.fp2_sqr(xq), xq), (4, 4)))
+        if yq is not None:
+            break
+        a += 1
+    return members + [(xq, yq), None, HG2.gen]
+
+
+@pytest.mark.parametrize("k", [-X, 2, 1], ids=["|x|", "2", "1"])
+def test_ladder_g2_kernel_matches_plain(kernel_path, k):
+    pts = DC.encode_g2_points(_g2_points())
+    got = K.scalar_mul_fixed(pts, k)
+    assert kernel_path["scalar_mul_fixed_g2"] == 1
+    assert kernel_path["scalar_mul_fixed"] == 0
+    assert K.SHAPES == {("scalar_mul_fixed_g2", k, 5): 1}
+    _same(K._flat(got), K._flat(K.scalar_mul_fixed_plain(pts, k)))
+
+
+def _g2_sum_input(n):
+    """n Jacobian G2 lanes with repeats (doubling) and, in lane 1, the
+    negation of lane 0 (P == -Q)."""
+    pts = DC.encode_g2_points(_g2_points())
+    idx = [RNG.randrange(5) for _ in range(n)]
+    pts = DC._tmap(lambda c: c[idx].clone(), pts)
+    neg = DC.G2.neg(pts)
+    for c, d in zip(K._flat(pts), K._flat(neg)):
+        c[1] = d[0]
+    return pts
+
+
+def test_sum_g2_kernel_matches_plain(kernel_path):
+    n = K.TILE
+    pts = _g2_sum_input(n)
+    got = K.sum_tiles(pts)
+    assert kernel_path["sum_tiles_g2"] == 1
+    assert K.SHAPES == {("sum_tiles_g2", None, n): 1}
+    _same(K._flat(got), K._flat(K.sum_tiles_plain(pts)))
+    assert got[0][0].shape == (n // K.TILE, 24)
+
+
+def test_sum_points_g2_kernel_path_matches_plain(kernel_path, monkeypatch):
+    pts = _g2_sum_input(5)
+    got = K.sum_points(pts)
+    assert dict(K.SHAPES) == {("sum_tiles_g2", None, 256): 1}
+    monkeypatch.setattr(K, "_on_card", lambda t: False)
+    _same(K._flat(got), K._flat(K.sum_points(pts)))
+
+
+def test_glv_g2_kernel_matches_plain(kernel_path):
+    """Lane 0 random; lane 1 P3 = 2Q (the step that doubles Q and adds P3
+    meets P == Q); lane 2 P3 = -2Q (P == -Q); lane 3 no bits."""
+    q = [HG2.mul(HG2.gen, RNG.randrange(1, R)) for _ in range(4)]
+    psi2 = [HG2.mul(p, X * X) for p in q]
+    two1, two2 = HG2.mul(q[1], 2), HG2.mul(q[2], 2)
+    p3 = [HG2.add(q[0], psi2[0]), two1, HG2.neg(two2), HG2.add(q[3], psi2[3])]
+    aff = lambda pts: DC.encode_g2_points(pts)[:2]
+    b0 = torch.tensor([[RNG.randrange(2) for _ in range(4)]
+                       for _ in range(32)], dtype=torch.int32)
+    b1 = torch.tensor([[RNG.randrange(2) for _ in range(4)]
+                       for _ in range(32)], dtype=torch.int32)
+    for lane in (1, 2):
+        b0[:2, lane] = 1
+        b1[:2, lane] = torch.tensor([0, 1])
+    b0[2:, 2] = 0
+    b1[2:, 2] = 0
+    b0[:, 3] = 0
+    b1[:, 3] = 0
+    tabs = (aff(q), aff(psi2), aff(p3), b0, b1)
+    got = K.scalar_mul_glv_mixed(*tabs)
+    assert kernel_path["scalar_mul_glv_mixed_g2"] == 1
+    assert K.SHAPES == {("scalar_mul_glv_mixed_g2", 32, 4): 1}
+    _same(K._flat(got), K._flat(K.scalar_mul_glv_mixed_plain(*tabs)))
+    assert DC.G2.is_infinity(got).tolist() == [False, False, True, True]
