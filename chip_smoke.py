@@ -23,9 +23,23 @@ card in two batched waves):
   g2_verify_batch_bisect  chained with six known bad slots;
   g2_exact_pass           the exact pass over the whole chained batch.
 
+Threshold partials, t = 7 of n = 13 signers over 2048 rounds (the JAX
+package's bench config 3), for ``bls-unchained-on-g1`` (``g1_*``) and
+``pedersen-bls-chained`` (``g2_*``):
+
+  *_sign               ``sign_batch`` with each of the 7 signers' shares and
+                       with the collective secret (8 K6 ladders at 256 bits);
+  *_partials_rlc       ``BatchPartialVerifier.verify_partials`` on the
+                       2048 x 7 valid partials: one RLC pass, no exact pass;
+  *_partials_fallback  the same rows with six kinds of bad slot: the RLC
+                       pass fails, the exact pass localizes every bad slot;
+  *_recover            ``recover_batch`` over the 2048 x 7 grid: each
+                       recovered signature equals the collective-secret one
+                       byte for byte and verifies against the group key.
+
 Then each kernel is held against its plain PyTorch version on the card at
-every shape the RLC runs and the exact passes gave it (exact: integer
-arithmetic) and timed.  Each phase prints one JSON line; the line before the
+every shape the main paths gave it (exact: integer arithmetic) and
+timed.  Each phase prints one JSON line; the line before the
 last is the per-kernel table ({"kernels": [...]}), preceded by the card's
 name and power limit; the last is {"ok": true, "device": ...}.  Any failure
 exits non-zero before the last line.  Without a CUDA device, or without the
@@ -54,6 +68,17 @@ G1_RLC_KERNELS = ("pow_fixed", "scalar_mul_fixed", "miller_loop",
 G2_EXACT_KERNELS = ("pow_fixed", "pow_fixed_fp2", "scalar_mul_fixed_g2",
                     "miller_loop", "final_exponentiation")
 G2_RLC_KERNELS = G2_EXACT_KERNELS + ("sum_tiles_g2", "scalar_mul_glv_mixed_g2")
+# the threshold paths, per signature group
+THRESHOLD_KERNELS = {
+    "g1": {"sign": ("pow_fixed", "scalar_mul_fixed", "scalar_mul_bits"),
+           "partials": G1_RLC_KERNELS,
+           "recover": ("pow_fixed", "scalar_mul_bits")},
+    "g2": {"sign": ("pow_fixed", "pow_fixed_fp2", "scalar_mul_fixed_g2",
+                    "scalar_mul_bits_g2"),
+           "partials": G2_RLC_KERNELS,
+           "recover": ("pow_fixed", "pow_fixed_fp2", "scalar_mul_bits_g2")}}
+THRESHOLD, N_NODES = 7, 13      # bench.py config 3: t = 7 of n = 13
+PARTIALS_ROUNDS = 2048          # rounds a chunk in bench.py config 3
 
 # League of Entropy mainnet, bls-unchained-on-g1, round 3
 LOE_PK = ("876f6fa8073736e22f6ff4badaab35c637503718f7a452d178ce69c45d2d8129"
@@ -321,6 +346,26 @@ def code_glv_g2(b0, b1):
     return _imad(G2_DBL_CODE * nz.numel() + G2_MADD_CODE * int(nz.sum()))
 
 
+def need_ladder_var(bits, dbl, add):
+    """K6 multiply-adds over all lanes for these bits (nbits, lanes): per
+    lane a ladder that starts at P at its first 1 bit, then one doubling a
+    step and one add per further 1 bit (dbl, add: the multiply-adds of the
+    cheapest formulas)."""
+    nz = bits.bool()
+    nbits = nz.shape[0]
+    ones = nz.sum(0)
+    first = nz.int().argmax(0)
+    first[ones == 0] = nbits - 1
+    dbls = (nbits - 1 - first).sum().item()
+    adds = (ones - 1).clamp(min=0).sum().item()
+    return dbls * dbl + adds * add
+
+
+def code_ladder_var(bits, dbl, add):
+    # every step a double and a complete add (selected or not)
+    return bits.numel() * (dbl + add)
+
+
 def ptxas_summary(log):
     """Per source file and entry kernel (mangled name): registers, stack
     bytes and spill bytes (from nvcc -Xptxas -v)."""
@@ -358,6 +403,7 @@ def entry_stats(regs, src, *needles):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=ROUNDS)
+    ap.add_argument("--partials-rounds", type=int, default=PARTIALS_ROUNDS)
     ap.add_argument("--reps", type=int, default=5,
                     help="timed runs per kernel shape (median kept)")
     ap.add_argument("--log-dir", default=None,
@@ -379,7 +425,9 @@ def main():
         from drand_tpu_torch.ops import h2c as DH
         from drand_tpu_torch.ops import pairing as DP
         from drand_tpu_torch.crypto import batch as B
+        from drand_tpu_torch.crypto import partials as PP
         from drand_tpu_torch.crypto import schemes
+        from drand_tpu_torch.crypto.host import tbls as HT
         from drand_tpu_torch.crypto.host import curve as HC
         from drand_tpu_torch.crypto.host import field as HF
         from drand_tpu_torch.crypto.host import serialize as HS
@@ -484,7 +532,7 @@ def main():
     def key_label(name, key):
         labels = {(P - 3) // 4: "(p-3)/4", P - 2: "p-2", -X: "|x|",
                   1 - X: "1-x", E2: "(p^2-9)/16"}
-        if name.startswith("scalar_mul_glv_mixed"):
+        if name.startswith(("scalar_mul_glv_mixed", "scalar_mul_bits")):
             return f"{key} bits"
         return labels.get(key, key)
 
@@ -726,6 +774,212 @@ def main():
         fail(f"a kernel of the G2 exact pass was not launched: "
              f"{g2x_launches}")
 
+    # -- phase 3e: threshold partials, signing and recovery ------------------
+    # One random group of t = 7 of n = 13 per scheme (PriPoly from the seed,
+    # public shares by PubPoly.eval on the host); the rounds are signed by
+    # the same 7 signers, each round's slots in another rotation.  The
+    # chained scheme's previous signatures are the collective signatures
+    # of the unchained digests, made first (the two waves of phase 3d),
+    # with a 32-byte genesis seed at slot 0.
+    nrp = args.partials_rounds
+    thr = {}
+
+    def threshold_phases(sid, tag):
+        sch_t = schemes.scheme_from_name(sid)
+        g2 = sch_t.sig_group is schemes.GroupG2
+        want_k = THRESHOLD_KERNELS[tag]
+        k6 = "scalar_mul_bits_g2" if g2 else "scalar_mul_bits"
+        poly = HT.PriPoly([int.from_bytes(rng.bytes(32), "big") % (R - 1) + 1
+                           for _ in range(THRESHOLD)])
+        shares = poly.shares(N_NODES)
+        pp = poly.commit(sch_t.key_group)
+        signers = sorted(rng.choice(N_NODES, THRESHOLD,
+                                    replace=False).tolist())
+        rnds = list(range(1, nrp + 1))
+        prevs = None
+        if sch_t.chained:
+            prevs = [rng.bytes(32)] + B.sign_batch(
+                sch_t, poly.secret(),
+                [sch_t.digest_beacon(r) for r in rnds[1:]])
+        msgs = [sch_t.digest_beacon(r, prevs[i] if prevs else None)
+                for i, r in enumerate(rnds)]
+
+        # *_sign: 7 share signatures and the collective one per round
+        def sign_all():
+            return ([B.sign_batch(sch_t, shares[i].value, msgs)
+                     for i in signers],
+                    B.sign_batch(sch_t, poly.secret(), msgs))
+
+        (parts, full), wall, launches, shapes, _ = drive(sign_all)
+        sample = sorted({int(v) for v in rng.choice(nrp, 16, replace=False)})
+        bad_sign = [i for i in sample
+                    if full[i] != sch_t.sign(poly.secret(), msgs[i])]
+        bad_sign += [(j, i) for j, s in enumerate(signers)
+                     for i in (sample[0], sample[-1])
+                     if parts[j][i] != sch_t.sign(shares[s].value, msgs[i])]
+        emit({"phase": f"{tag}_sign", "scheme": sid, "rounds": nrp,
+              "calls": THRESHOLD + 1, "wall_s": wall,
+              "signatures_per_s": (THRESHOLD + 1) * nrp / wall,
+              "host_checked_rounds": sample, "launches": launches,
+              "shapes": shape_list(shapes), "device": name,
+              "nvidia_smi": smi_line})
+        if bad_sign:
+            fail(f"{tag} sign_batch disagrees with the host at {bad_sign}")
+        if launches[k6] != THRESHOLD + 1 or any(
+                launches[k] == 0 for k in want_k["sign"]):
+            fail(f"{tag} signing launches: {launches}")
+        paths = {f"{tag}_sign": (launches, shapes)}
+
+        # the (rounds, 7) grid: round r's slots in rotation r % 7
+        order = [signers[r % THRESHOLD:] + signers[:r % THRESHOLD]
+                 for r in range(nrp)]
+        col = {s: j for j, s in enumerate(signers)}
+        grid = [[parts[col[s]][r] for s in order[r]] for r in range(nrp)]
+        rows = [[s.to_bytes(2, "big") + g for s, g in zip(order[r], grid[r])]
+                for r in range(nrp)]
+        bv = PP.BatchPartialVerifier(sch_t, pp, N_NODES)
+
+        # *_partials_rlc: all valid, one RLC pass
+        got, wall, launches, shapes, passes = drive(
+            lambda: bv.verify_partials(msgs, rows))
+        ok = bool(got.all()) and got.shape == (nrp, THRESHOLD) \
+            and passes == {"rlc": 1, "exact": 0}
+        t0 = time.perf_counter()
+        enc, idxs, valid = bv._encode(msgs, rows, THRESHOLD)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = bool(bv._rlc(enc, idxs, valid)[1])
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        emit({"phase": f"{tag}_partials_rlc", "scheme": sid, "rounds": nrp,
+              "partials": nrp * THRESHOLD, "all_valid": bool(got.all()),
+              "passes": passes, "wall_s": wall, "rounds_per_s": nrp / wall,
+              "partials_per_s": nrp * THRESHOLD / wall,
+              "second_run": {"host_pack_s": pack_s, "device_pass_s": pass_s,
+                             "rounds_per_s": nrp / (pack_s + pass_s)},
+              "launches": launches, "shapes": shape_list(shapes),
+              "device": name, "nvidia_smi": smi_line})
+        if not ok or not again:
+            fail(f"{tag} all-valid verify_partials: all true "
+                 f"{bool(got.all())}, passes {passes} (want one RLC pass), "
+                 f"second pass {again}")
+        if any(launches[k] == 0 for k in want_k["partials"]):
+            fail(f"{tag}: a kernel of the partials RLC pass was not "
+                 f"launched: {launches}")
+        paths[f"{tag}_partials_rlc"] = (launches, shapes)
+        split_rlc = (pack_s, pass_s, f"{tag}_partials_rlc")
+
+        # *_partials_fallback: the kinds of bad slot of tests/test_partials.py
+        brows = [list(r) for r in rows]
+        expect = np.ones((nrp, THRESHOLD), dtype=bool)
+        kinds = {}
+
+        def put(kind, r, j, val):
+            brows[r][j] = val
+            expect[r, j] = False
+            kinds[kind] = [r, j]
+
+        r = 5 % nrp
+        b = bytearray(rows[r][1]); b[12] ^= 0x55
+        put("flipped_signature_byte", r, 1, bytes(b))
+        r = 100 % nrp
+        put("index_out_of_range", r, 2, N_NODES.to_bytes(2, "big")
+            + rows[r][2][2:])
+        r = 1000 % nrp
+        put("truncated", r, 3, rows[r][3][:-1])
+        r = 1500 % nrp
+        dec = HS.g2_from_bytes if g2 else HS.g1_from_bytes
+        for tweak in range(1, 256):
+            b = bytearray(rows[r][4])
+            b[-1] ^= tweak
+            try:
+                dec(bytes(b[2:]), check_subgroup=False)
+            except ValueError:
+                break
+        put("x_with_no_y", r, 4, bytes(b))
+        r = 1700 % nrp
+        put("other_rounds_partial", r, 5, rows[(r + 1) % nrp][
+            order[(r + 1) % nrp].index(order[r][5])])
+        r = 2000 % nrp
+        brows[r] = brows[r][:THRESHOLD - 1]
+        expect[r, THRESHOLD - 1] = False
+        kinds["missing_slot"] = [r, THRESHOLD - 1]
+        got, wall, launches, shapes, passes = drive(
+            lambda: bv.verify_partials(msgs, brows))
+        ok = got.shape == expect.shape and bool((got == expect).all()) \
+            and passes == {"rlc": 1, "exact": 1}
+        emit({"phase": f"{tag}_partials_fallback", "scheme": sid,
+              "rounds": nrp, "bad_slots": kinds, "mask_matches": ok,
+              "n_valid": int(got.sum()), "passes": passes, "wall_s": wall,
+              "rounds_per_s": nrp / wall, "launches": launches,
+              "shapes": shape_list(shapes), "device": name,
+              "nvidia_smi": smi_line})
+        if not ok:
+            wrong = np.argwhere(got != expect)[:20].tolist() \
+                if got.shape == expect.shape else got.shape
+            fail(f"{tag} partials fallback mask differs at {wrong}, "
+                 f"passes {passes}")
+        if any(launches[k] == 0 for k in want_k["partials"]):
+            fail(f"{tag}: a kernel of the partials fallback was not "
+                 f"launched: {launches}")
+        paths[f"{tag}_partials_fallback"] = (launches, shapes)
+
+        # *_recover: the grid's partials -> the collective signature
+        rec, wall, launches, shapes, _ = drive(
+            lambda: B.recover_batch(sch_t, order, grid))
+        same = [i for i in range(nrp) if rec[i] != full[i]]
+        key = sch_t.key_group.to_bytes(pp.public_key())
+        ver = B.BatchBeaconVerifier(sch_t, key).verify_batch(rnds, rec, prevs)
+        emit({"phase": f"{tag}_recover", "scheme": sid, "rounds": nrp,
+              "threshold": THRESHOLD, "nodes": N_NODES, "signers": signers,
+              "equal_to_collective_signature": not same,
+              "verify_batch_all_valid": bool(ver.all()), "wall_s": wall,
+              "rounds_per_s": nrp / wall, "launches": launches,
+              "shapes": shape_list(shapes), "device": name,
+              "nvidia_smi": smi_line})
+        if same or not ver.all():
+            fail(f"{tag} recover_batch: {len(same)} rounds differ from the "
+                 f"collective signature (first {same[:5]}), verify_batch "
+                 f"all valid {bool(ver.all())}")
+        if any(launches[k] == 0 for k in want_k["recover"]):
+            fail(f"{tag}: a kernel of recover_batch was not launched: "
+                 f"{launches}")
+        paths[f"{tag}_recover"] = (launches, shapes)
+
+        # stage split of recovery (host Lagrange + GLV digits + wire parse,
+        # then the device run), each timed apart
+        t0 = time.perf_counter()
+        lams = [HT._lagrange_coeff(order[r], order[r][j])
+                for j in range(THRESHOLD) for r in range(nrp)]
+        dbits, dneg = (DC.glv_decompose_g2 if g2 else DC.glv_decompose_g1)(
+            lams)
+        xw, sgn, _ = B._parse_grid(grid, THRESHOLD, nrp, g2)
+        host_s = time.perf_counter() - t0
+        nl = dbits.shape[1]
+        x = torch.from_numpy(xw).to(dev)
+        args_ = ((x[:, 0], x[:, 1]) if g2 else x,
+                 torch.from_numpy(sgn).to(dev),
+                 torch.from_numpy(dbits.reshape(dbits.shape[0],
+                                                nl * THRESHOLD, nrp)).to(dev),
+                 torch.from_numpy(dneg.reshape(nl * THRESHOLD, nrp)).to(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rx, ry, _ = B._recover_run(g2, *args_)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        B._to_wire(g2, rx, ry)
+        wire_s = time.perf_counter() - t0
+        thr[tag] = {"paths": paths, "partials_split": split_rlc,
+                    "recover_stages_ms": {
+                        "host_lagrange_glv_parse": host_s * 1e3,
+                        "device_run": dev_s * 1e3,
+                        "host_compress": wire_s * 1e3}}
+
+    threshold_phases(schemes.SHORT_SIG_SCHEME_ID, "g1")
+    threshold_phases(schemes.DEFAULT_SCHEME_ID, "g2")
+
     # -- phase 4: each kernel against its plain version at the path's shapes
     def timed(fn, reps):
         fn()
@@ -904,17 +1158,155 @@ def main():
              lambda: K.scalar_mul_glv_mixed_plain(*glv2_args), err_flat,
              (need_glv_g2(h0, h1) / (4 * pad),
               code_glv_g2(h0, h1) / (4 * pad)), 12 + 2 * 32 / 12 + 6)]),
+        ("scalar_mul_bits", "ladder_var.cu", 595, "K6 G1",
+         ("k_ladder_var", "G1J"), []),
+        ("scalar_mul_bits_g2", "ladder_var.cu", 595, "K6 G2",
+         ("k_ladder_var", "G2J"), []),
     ]
-    timed_shapes = {(kname, key, lanes) for kname, *_, shapes in specs
-                    for _, key, lanes, *_ in shapes}
     ran = {"verify_batch_rlc": (rlc_launches, rlc_shapes),
            "exact_pass": (ex_launches, ex_shapes),
            "g2_verify_batch_rlc": (g2_launches, g2_shapes),
            "g2_exact_pass": (g2x_launches, g2x_shapes)}
-    untimed = {s: c for _, shapes in ran.values() for s, c in shapes.items()
-               if s not in timed_shapes}
-    if untimed:
-        fail(f"launches at shapes the table does not time: {untimed}")
+    for tag in ("g1", "g2"):
+        ran.update(thr[tag]["paths"])
+
+    # Every other shape a path launched (the threshold paths' widths, and
+    # all of K6) gets inputs made here: random field elements, the points
+    # above spread over the lanes with infinity, the generator and a point
+    # outside the group in lanes 0-2, random bit planes; K6 as its callers
+    # build them (see k6_inputs).
+    def rand_fp_dev(m):
+        """m random Montgomery Fp elements made on the card: 16-bit limbs,
+        the top one below p's, so every value is below p."""
+        x = torch.randint(0, 1 << 16, (m, L.NLIMB), device=dev)
+        x[:, -1] %= P >> (16 * (L.NLIMB - 1))
+        return x
+
+    def spread(pt, lanes):
+        n0 = DC._leaf(pt[0]).shape[0]
+        idx = torch.arange(lanes, device=dev) % n0
+        return DC._tmap(lambda c: c[idx], pt)
+
+    special = {False: DC._tmap(lambda c: c.roll(3, 0), pj),
+               True: DC._tmap(lambda c: c.roll(3, 0), pj2)}
+
+    def k6_inputs(g2, nbits, lanes):
+        """K6's inputs as its callers build them.  256 bits (signing):
+        one random 256-bit scalar a lane, lanes 3-5 members with the
+        scalars r and r + 2 (the last step's add meets P == -Q and P == Q)
+        and 0.  130 / 66 bits (recovery): random scalars' signed GLV
+        digits, the points' phi / psi lanes negated where a digit is
+        negative, one scalar 0.  Every warp mixes 0 and 1 bits, and
+        infinite and finite points."""
+        curve = DC.G2 if g2 else DC.G1
+        if nbits == 256:
+            ks = [random.getrandbits(256) for _ in range(lanes)]
+            ks[3:6] = [R, R + 2, 0]
+            return (spread(special[g2], lanes),
+                    torch.from_numpy(DC.msb_bits(ks, 256)).to(dev))
+        nl = DC.GLV_G2_LANES if g2 else DC.GLV_G1_LANES
+        per = lanes // nl
+        ks = [random.randrange(R) for _ in range(per)]
+        ks[5] = 0
+        bits, neg = (DC.glv_decompose_g2 if g2 else DC.glv_decompose_g1)(ks)
+        if bits.shape[0] != nbits or per * nl != lanes:
+            fail(f"K6 at {nbits} bits over {lanes} lanes: no GLV recipe")
+        pts = (DC.g2_psi_lanes if g2 else DC.g1_phi_lanes)(
+            spread(special[g2], per))
+        negm = torch.from_numpy(neg.reshape(-1)).to(dev) == 1
+        return (curve.select(negm, curve.neg(pts), pts),
+                torch.from_numpy(bits.reshape(nbits, lanes)).to(dev))
+
+    def generic_shape(kname, key, lanes):
+        """(label, key, lanes, kernel call, plain call, compare, (need,
+        code) multiply-adds per lane, words per lane) at a recorded shape."""
+        g2k = kname.endswith("_g2")
+        label = f"{key_label(kname, key)} at {lanes}" if key is not None \
+            else f"{lanes} lanes"
+        if kname == "pow_fixed":
+            x = rand_fp_dev(lanes)
+            return (label, key, lanes, lambda: K.pow_fixed(x, key),
+                    lambda: K.pow_fixed_plain(x, key),
+                    lambda a, b: err([a], [b]),
+                    (need_pow(key), code_pow(key)), 2)
+        if kname == "pow_fixed_fp2":
+            x = (rand_fp_dev(lanes), rand_fp_dev(lanes))
+            return (label, key, lanes, lambda: K.pow_fixed_fp2(x, key),
+                    lambda: K.pow_fixed_fp2_plain(x, key), err_flat,
+                    (need_pow2(key), code_pow2(key)), 4)
+        if kname.startswith("scalar_mul_fixed"):
+            pts = spread(special[g2k], lanes)
+            im = ((need_ladder_g2(key), code_ladder_g2(key)) if g2k
+                  else (need_ladder(key), code_ladder(key)))
+            return (label, key, lanes, lambda: K.scalar_mul_fixed(pts, key),
+                    lambda: K.scalar_mul_fixed_plain(pts, key), err_flat,
+                    im, 12 if g2k else 6)
+        if kname == "miller_loop":
+            px, py = rand_fp_dev(lanes), rand_fp_dev(lanes)
+            q = ((rand_fp_dev(lanes), rand_fp_dev(lanes)),
+                 (rand_fp_dev(lanes), rand_fp_dev(lanes)))
+            return (f"{lanes} pairs", key, lanes,
+                    lambda: K.miller_loop(px, py, q),
+                    lambda: K.miller_loop_plain(px, py, q),
+                    lambda a, b: err(leaves(a), leaves(b)),
+                    (need_miller(xbits), code_miller(xbits)), 18)
+        if kname == "final_exponentiation":
+            f = T.fp12_pack([rand_fp_dev(lanes) for _ in range(12)])
+            return (label, key, lanes, lambda: K.final_exponentiation(f),
+                    lambda: K.final_exponentiation_plain(f),
+                    lambda a, b: err(leaves(a), leaves(b)),
+                    (need_finalexp(xbits, K.INV_EXP, HF.FROB),
+                     code_finalexp(xbits, K.INV_EXP)), 24)
+        if kname.startswith("sum_tiles"):
+            pts = spread(special[g2k], lanes)
+            add_need = _imad(G2_ADD_NEED) if g2k else None
+            add_code = _imad(G2_ADD_CODE) if g2k else None
+            words = 6 if g2k else 3
+            return (label, key, lanes, lambda: K.sum_tiles(pts),
+                    lambda: K.sum_tiles_plain(pts), err_flat,
+                    (need_sum(K._curve(pts).is_infinity(pts), K.TILE,
+                              add_need) / lanes,
+                     code_sum(lanes, K.TILE, add_code) / lanes),
+                    words + words / K.TILE)
+        if kname.startswith("scalar_mul_glv_mixed"):
+            tabs = [spread(t, lanes) for t in
+                    (glv2_args[:3] if g2k else glv_args[:3])]
+            b0, b1 = torch.randint(0, 2, (2, key, lanes), device=dev,
+                                   dtype=torch.int32)
+            a = (*tabs, b0, b1)
+            im = ((need_glv_g2(b0, b1), code_glv_g2(b0, b1)) if g2k
+                  else (need_glv(b0, b1), code_glv(b0, b1)))
+            return (label, key, lanes, lambda: K.scalar_mul_glv_mixed(*a),
+                    lambda: K.scalar_mul_glv_mixed_plain(*a), err_flat,
+                    (im[0] / lanes, im[1] / lanes),
+                    (12 + 2 * key / 12 + 6) if g2k else
+                    (6 + 2 * key / 12 + 3))
+        if kname.startswith("scalar_mul_bits"):
+            pts, bits = k6_inputs(g2k, key, lanes)
+            if g2k:
+                dbl, add = _imad(G2_DBL_NEED), _imad(G2_ADD_NEED)
+                cdbl, cadd = _imad(G2_DBL_CODE), _imad(G2_ADD_CODE)
+            else:
+                dbl, add, cdbl, cadd = _imad(2, 5), _imad(11, 5), \
+                    _imad(7), _imad(23)
+            return (f"{key} bits at {lanes}", key, lanes,
+                    lambda: K.scalar_mul_bits(pts, bits),
+                    lambda: K.scalar_mul_bits_plain(pts, bits), err_flat,
+                    (need_ladder_var(bits, dbl, add) / lanes,
+                     code_ladder_var(bits, cdbl, cadd) / lanes),
+                    (12 if g2k else 6) + key / 12)
+        fail(f"no inputs for {kname} at {key}, {lanes} lanes")
+
+    timed_shapes = {(kname, key, lanes) for kname, *_, shapes in specs
+                    for _, key, lanes, *_ in shapes}
+    recorded = sorted({sh for _, shapes in ran.values() for sh in shapes},
+                      key=lambda sh: (sh[0], sh[2], str(sh[1])))
+    by_name = {sp[0]: sp[5] for sp in specs}
+    for kname, key, lanes in recorded:
+        if (kname, key, lanes) not in timed_shapes:
+            if kname not in by_name:
+                fail(f"a launch of {kname}, a kernel the table does not hold")
+            by_name[kname].append(generic_shape(kname, key, lanes))
     table, checks, path_ms = [], {}, {p: 0.0 for p in ran}
     for kname, src, line, tpu, needles, shapes in specs:
         ms = pms = ops_ms = bytes_ms = code_ms = 0.0
@@ -960,8 +1352,10 @@ def main():
             "ms": ms, "plain_ms": pms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None, "code_ops_ms": code_ms,
-            "times_are": f"sums over the launches of the RLC runs and exact "
-                         f"passes at {n} rounds of both signature groups",
+            "times_are": f"sums over the launches of the main paths: the "
+                         f"RLC runs and exact passes at {n} rounds of both "
+                         f"signature groups, the threshold phases at {nrp} "
+                         f"rounds x {THRESHOLD} partials",
             "per_shape": detail, "ptxas": entry_stats(regs, src, *needles),
             "device": name, "nvidia_smi": smi_line})
     emit({"phase": "kernels_vs_plain", "tolerance": "exact (integer "
@@ -1048,7 +1442,12 @@ def main():
           "exact_pass": split(pack_s, exact_s, "exact_pass"),
           "g2_verify_batch_rlc": split(g2_pack_s, g2_pass_s,
                                        "g2_verify_batch_rlc"),
-          "g2_exact_pass": split(g2x_pack_s, g2x_s, "g2_exact_pass")})
+          "g2_exact_pass": split(g2x_pack_s, g2x_s, "g2_exact_pass"),
+          "threshold": {tag: {
+              "partials_rlc": split(*thr[tag]["partials_split"]),
+              "recover_stages_ms": thr[tag]["recover_stages_ms"],
+              "path_kernels_ms": {p: path_ms[p] for p in thr[tag]["paths"]}}
+              for tag in ("g1", "g2")}})
 
     say(smi_line)
     emit({"kernels": table})

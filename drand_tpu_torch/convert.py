@@ -89,3 +89,27 @@ def const_bundle(entries, device="cpu") -> torch.Tensor:
     return torch.from_numpy(
         np.stack([np.asarray(v) for _, v in entries]).astype(np.int64)
     ).to(device)
+
+
+def partials_state(jax_partial_verifier, device="cpu") -> dict:
+    """A JAX BatchPartialVerifier's state as port tensors: the n public
+    shares' affine Montgomery coordinates (pk_x, pk_y: (n, 24) on G1, Fp2
+    pairs of them on G2) and the fixed generator's (-g1 or -g2)."""
+    v = jax_partial_verifier
+    return {"pk_x": tree_from_numpy(v.pk_x, device),
+            "pk_y": tree_from_numpy(v.pk_y, device),
+            "fixed_aff": tree_from_numpy(v.fixed_aff, device)}
+
+
+def pub_poly(jax_pub_poly, group):
+    """A JAX host PubPoly -> the port's PubPoly over `group` (the port's
+    GroupG1 or GroupG2) with the same commitments (host affine points)."""
+    from .crypto.host.tbls import PubPoly
+    return PubPoly(group, list(jax_pub_poly.commits))
+
+
+def glv_digits(bits, neg, device="cpu"):
+    """The JAX package's signed GLV digits (``glv_decompose_g1/g2``: bits
+    (nbits, lanes, n) and neg (lanes, n), uint32) -> int32 tensors."""
+    to = lambda a: torch.from_numpy(np.asarray(a).astype(np.int32)).to(device)
+    return to(bits), to(neg)

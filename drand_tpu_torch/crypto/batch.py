@@ -1,4 +1,5 @@
-"""Batched beacon verification, all three drand schemes.
+"""Batched beacon verification of all three drand schemes, batched signing
+and batched threshold recovery.
 
 Counterpart of drand_tpu/crypto/batch.py on the FIELDS front (host
 hash-to-field).  The N verification equations
@@ -38,6 +39,13 @@ messages to field elements (hashlib); every curve and pairing operation
 runs on the device, and so do the RLC randomizers.  Malformed and padding
 slots carry the generator encoding: zero RLC coefficient, exact result
 discarded, verdict from the host's bad mask.
+
+``sign_batch`` signs many messages with one secret: hash-to-curve, one K6
+ladder at 256 bits, to_affine.  ``recover_batch`` interpolates t verified
+partials per round in the exponent: Lagrange coefficients and their signed
+GLV digits on the host, decompression (K1 or K5), one K6 ladder over the
+phi (G1, 130 bits) or psi (G2, 66 bits) lanes of all partials, a sum per
+round.
 """
 
 import secrets
@@ -50,6 +58,8 @@ import numpy as np
 import torch
 
 from .host import h2c as H2C
+from .host import serialize as HS
+from .host import tbls as HT
 from .host.params import P, G1_GEN, G2_GEN
 from .host.serialize import y_is_larger_fp, y_is_larger_fp2
 from .host.curve import G1, G2
@@ -643,3 +653,121 @@ class BatchBeaconVerifier:
         valid = link_ok & self.verify_batch(
             [b.round for b in beacons], [b.signature for b in beacons], prevs)
         return bool(valid.all()), valid
+
+
+# ---------------------------------------------------------------------------
+# Batched signing
+# ---------------------------------------------------------------------------
+
+def _sign_run(g2sig, u0, u1, bits):
+    """hash_to_curve of the padded messages, one K6 ladder at 256 bits with
+    the secret's bits on every lane, to_affine.  Returns (x, y, is_inf)."""
+    curve = DC.G2 if g2sig else DC.G1
+    hm = (DH.hash_to_g2_jac if g2sig else DH.hash_to_g1_jac)(u0, u1)
+    return curve.to_affine(curve.scalar_mul_bits(hm, bits))
+
+
+def _affine_g1_to_host(x, y):
+    xs, ys = L.decode_mont(x), L.decode_mont(y)
+    if isinstance(xs, int):
+        xs, ys = [xs], [ys]
+    return list(zip(xs, ys))
+
+
+def _affine_g2_to_host(x, y):
+    x0, x1 = L.decode_mont(x[0]), L.decode_mont(x[1])
+    y0, y1 = L.decode_mont(y[0]), L.decode_mont(y[1])
+    if isinstance(x0, int):
+        x0, x1, y0, y1 = [x0], [x1], [y0], [y1]
+    return [((a, b), (c, d)) for a, b, c, d in zip(x0, x1, y0, y1)]
+
+
+def _to_wire(g2sig, x, y) -> list:
+    """Affine device points -> compressed wire signatures (host)."""
+    if g2sig:
+        return [HS.g2_to_bytes(pt) for pt in _affine_g2_to_host(x, y)]
+    return [HS.g1_to_bytes(pt) for pt in _affine_g1_to_host(x, y)]
+
+
+def sign_batch(scheme: Scheme, secret: int, msgs, device=None) -> list:
+    """BLS-sign many messages with one secret on the device (CUDA unless
+    ``device="cpu"``); returns the compressed signatures."""
+    device = resolve_device(device)
+    n = len(msgs)
+    if n == 0:
+        return []
+    pad = _pad_len(n)
+    g2sig = scheme.sig_group is GroupG2
+    h2f = hash_msgs_to_field_g2 if g2sig else hash_msgs_to_field_g1
+    u0, u1 = h2f(_pad_msgs(msgs, pad), scheme.dst, device)
+    bits = torch.from_numpy(DC.scalars_to_bits([secret] * pad)).to(device)
+    x, y, _ = _sign_run(g2sig, u0, u1, bits)
+    return _to_wire(g2sig, x, y)[:n]
+
+
+# ---------------------------------------------------------------------------
+# Batched tBLS recovery: Lagrange interpolation in the exponent as one MSM
+# per round (kyber tbls.Recover, drand chainstore.go:202)
+# ---------------------------------------------------------------------------
+
+def _parse_grid(sig_grid, t: int, nr: int, g2sig: bool):
+    """(rounds, t) wire signatures -> (x limbs (t*nr, ...), sign flags, bad
+    mask), signer-major: entry j*nr + r is signer slot j of round r."""
+    flat = [bytes(sig_grid[r][j]) for j in range(t) for r in range(nr)]
+    return _wire_parse(flat, g2sig)
+
+
+def _recover_run(g2sig, sig_x, sign, bits, neg):
+    """Decompress the t*nr partials (one K1 or K5 launch), spread each over
+    its GLV lanes (phi on G1, psi^0..3 on G2), negate the lanes whose digit
+    is negative, one K6 ladder over the (L*t, nr) lanes, a leading-axis sum
+    per round and to_affine.  bits (nbits, L*t, nr), neg (L*t, nr).
+    Returns (x, y, every partial decompressed)."""
+    curve = DC.G2 if g2sig else DC.G1
+    if g2sig:
+        sig_jac, ok = DH.g2_recover_y(sig_x[0], sig_x[1], sign)
+        lanes = DC.g2_psi_lanes(sig_jac)
+    else:
+        sig_jac, ok = DH.g1_recover_y(sig_x, sign)
+        lanes = DC.g1_phi_lanes(sig_jac)
+    nlanes, nr = bits.shape[1], bits.shape[2]
+    base = curve.select(neg.reshape(-1) == 1, curve.neg(lanes), lanes)
+    base = DC._tmap(lambda a: a.reshape((nlanes, nr) + a.shape[1:]), base)
+    acc = curve.sum_points(curve.scalar_mul_bits(base, bits))
+    x, y, _ = curve.to_affine(acc)
+    return x, y, torch.all(ok)
+
+
+def recover_batch(scheme: Scheme, indices, partial_sigs, device=None) -> list:
+    """Recover the full signature of many rounds at once (CUDA unless
+    ``device="cpu"``).
+
+    indices: (rounds, t) signer indices; partial_sigs: (rounds, t) BLS
+    signatures without the 2-byte index prefix, already verified (the
+    aggregator feeds only valid partials, chainstore.go:241).  Raises
+    ValueError on a bad encoding or an x with no y on the curve."""
+    device = resolve_device(device)
+    nr = len(indices)
+    if nr == 0:
+        return []
+    t = len(indices[0])
+    g2sig = scheme.sig_group is GroupG2
+    lams = [HT._lagrange_coeff(indices[r], indices[r][j])
+            for j in range(t) for r in range(nr)]
+    if g2sig:
+        decompose, nlanes = DC.glv_decompose_g2, DC.GLV_G2_LANES
+    else:
+        decompose, nlanes = DC.glv_decompose_g1, DC.GLV_G1_LANES
+    bits, neg = decompose(lams)             # (nbits, L, t*nr), (L, t*nr)
+    bits = bits.reshape(bits.shape[0], nlanes * t, nr)
+    neg = neg.reshape(nlanes * t, nr)
+    xw, sgn, bad = _parse_grid(partial_sigs, t, nr, g2sig)
+    if bad.any():
+        raise ValueError("invalid partial signature encoding")
+    x = torch.from_numpy(xw).to(device)
+    sig_x = (x[:, 0], x[:, 1]) if g2sig else x
+    to = lambda a: torch.from_numpy(a).to(device)
+    x, y, dec_ok = _recover_run(g2sig, sig_x, to(sgn), to(bits), to(neg))
+    if not bool(dec_ok):
+        raise ValueError("invalid partial signature encoding")
+    return _to_wire(g2sig, x, y)

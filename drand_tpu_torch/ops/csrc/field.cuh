@@ -453,6 +453,16 @@ DI void g1_infinity(G1J& r) {
   fp_zero(r.Z);
 }
 
+// r = c ? a : b, word by word (the G1 twin of g2_select below).
+DI void g1_select(G1J& r, bool c, const G1J& a, const G1J& b) {
+  const Fp* pa = &a.X;
+  const Fp* pb = &b.X;
+  Fp* pr = &r.X;
+  UNROLL for (int k = 0; k < 3; k++)
+    UNROLL for (int w = 0; w < 12; w++)
+      pr[k].v[w] = c ? pa[k].v[w] : pb[k].v[w];
+}
+
 DNI void g1_double(G1J& r, const G1J& p) {
   Fp A, B, t, XB, C, U, D, E, Fv, X3, Y3a, C2, C4, Y3, Z3, tmp;
   fp_sqr(A, p.X);
@@ -882,6 +892,12 @@ DI void point_double(G1J& r, const G1J& p) { g1_double(r, p); }
 DI void point_double(G2J& r, const G2J& p) { g2_double(r, p); }
 DI void point_add(G1J& r, const G1J& p, const G1J& q) { g1_add(r, p, q); }
 DI void point_add(G2J& r, const G2J& p, const G2J& q) { g2_add(r, p, q); }
+DI void point_select(G1J& r, bool c, const G1J& a, const G1J& b) {
+  g1_select(r, c, a, b);
+}
+DI void point_select(G2J& r, bool c, const G2J& a, const G2J& b) {
+  g2_select(r, c, a, b);
+}
 
 // Fp12 leaves in (c6, c2, c) nesting order: 12 coordinates
 DI void load_fp12(Fp12& f, const uint32_t* base, int64_t B, int64_t lane) {

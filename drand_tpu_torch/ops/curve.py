@@ -15,16 +15,19 @@ produce the same one (the tests compare coordinates exactly).
   Budroni-Pintore with psi.
 
 Scalar multiplication by a fixed scalar dispatches to kernel K2
-(``kernels.scalar_mul_fixed``), the GLV-split RLC multiplication to K8
-(``kernels.scalar_mul_glv_mixed``), either curve.
+(``kernels.scalar_mul_fixed``), by one scalar per lane to K6
+(``kernels.scalar_mul_bits``), the GLV-split RLC multiplication to K8
+(``kernels.scalar_mul_glv_mixed``), and a 1-D point sum to K7
+(``kernels.sum_points``), either curve.
 """
 
+import numpy as np
 import torch
 
 from . import limbs as L
 from . import tower as T
 from ..crypto.host import field as HF
-from ..crypto.host.params import P as FP_P, X as BLS_X
+from ..crypto.host.params import P as FP_P, R as ORDER_R, X as BLS_X
 
 _BETA = pow(2, (FP_P - 1) // 3, FP_P)
 
@@ -278,6 +281,30 @@ class DevCurve:
         res = kernels.scalar_mul_fixed(p, abs(k))
         return self.neg(res) if k < 0 else res
 
+    def scalar_mul_bits(self, p, bits):
+        """k*P for per-element scalars given as an MSB-first bit tensor:
+        p has batch shape S, bits (nbits,) + S.  Kernel K6."""
+        from . import kernels
+        return kernels.scalar_mul_bits(p, bits)
+
+    def sum_points(self, p):
+        """Sum a point batch over its leading axis.  A 1-D batch goes to
+        kernel K7 (the JAX Pallas route); a batch of more dimensions runs
+        the JAX package's halving tree over the leading axis, the odd
+        leftover carried, as pallas_field.sum_points leaves it to XLA."""
+        from . import kernels
+        if _leaf(p[0]).dim() == 2:
+            return kernels.sum_points(p)
+        n = _leaf(p[0]).shape[0]
+        while n > 1:
+            half = n // 2
+            s = self.add(_tmap(lambda t: t[:half], p),
+                         _tmap(lambda t: t[half:2 * half], p))
+            p = _cat_lanes(s, _tmap(lambda t: t[2 * half:], p)) \
+                if n % 2 else s
+            n = half + n % 2
+        return _tmap(lambda t: t[0], p)
+
 
 G1 = DevCurve(FP_FNS, "G1")
 G2 = DevCurve(FP2_FNS, "G2")
@@ -285,6 +312,84 @@ G2 = DevCurve(FP2_FNS, "G2")
 
 def _cat_lanes(*pts):
     return _tmap(lambda *xs: torch.cat(xs, 0), *pts)
+
+
+# ---------------------------------------------------------------------------
+# Scalars to bit planes (host numpy)
+# ---------------------------------------------------------------------------
+
+def msb_bits(ks, nbits: int) -> np.ndarray:
+    """Non-negative ints below 2^nbits -> (nbits, len(ks)) MSB-first int32
+    bit planes."""
+    nbytes = (nbits + 7) // 8
+    buf = np.frombuffer(b"".join(int(k).to_bytes(nbytes, "big") for k in ks),
+                        np.uint8).reshape(len(ks), nbytes)
+    bits = np.unpackbits(buf, axis=1)[:, -nbits:]
+    return np.ascontiguousarray(bits.T, dtype=np.int32)
+
+
+def scalars_to_bits(ks, nbits: int = 256) -> np.ndarray:
+    """Scalars (reduced mod r, low nbits kept) -> (nbits, len(ks))
+    MSB-first int32 bit planes."""
+    lomask = (1 << nbits) - 1
+    return msb_bits([k % ORDER_R & lomask for k in ks], nbits)
+
+
+# Signed-digit GLV decompositions of full 255-bit scalars (the Lagrange
+# coefficients of batched recovery): the device negates a base lane where
+# its digit is negative and runs one short ladder (K6) over all lanes.
+# G2: psi acts as [x], so k = sum_j d_j x^j gives [k]Q = sum_j [d_j]
+# psi^j(Q); centered base-x digits fit 66 bits.  G1: phi has eigenvalue
+# lambda = -x^2; Babai rounding on the basis (x^2, 1), (x^2 - 1, x^2) gives
+# k = k0 + lambda k1 with |k_i| < 2^130.
+GLV_G2_LANES = 4
+GLV_G2_NBITS = 66
+GLV_G1_LANES = 2
+GLV_G1_NBITS = 130
+
+
+def _signed_digit_bits(digs: np.ndarray, nbits: int):
+    """(lanes, n) object array of signed ints -> (bits (nbits, lanes, n)
+    MSB-first int32, neg mask (lanes, n) int32)."""
+    shape = digs.shape
+    flat = [int(d) for d in digs.reshape(-1)]
+    mags = [abs(d) for d in flat]
+    assert max(mags, default=0) < (1 << nbits), \
+        f"GLV digit overflows {nbits} bits"
+    neg = np.array([d < 0 for d in flat], dtype=np.int32)
+    return (msb_bits(mags, nbits).reshape((nbits,) + shape),
+            neg.reshape(shape))
+
+
+def glv_decompose_g2(ks):
+    """Scalars -> (bits (66, 4, n), neg (4, n)) with k = d0 + x d1 + x^2 d2
+    + x^3 d3 mod r, so [k]Q = sum_j [d_j] psi^j(Q) on G2."""
+    m = -BLS_X
+    n = len(ks)
+    digs = np.zeros((GLV_G2_LANES, n), dtype=object)
+    for i, k in enumerate(ks):
+        t = int(k) % ORDER_R
+        for j in range(GLV_G2_LANES):
+            q = -((2 * t + m) // (2 * m))     # nearest integer to t/x
+            digs[j][i] = t - BLS_X * q
+            t = q
+        digs[GLV_G2_LANES - 1][i] += BLS_X * t  # fold the residual
+    return _signed_digit_bits(digs, GLV_G2_NBITS)
+
+
+def glv_decompose_g1(ks):
+    """Scalars -> (bits (130, 2, n), neg (2, n)) with k = k0 + lambda k1
+    mod r, lambda = -x^2 the phi eigenvalue, so [k]P = [k0]P + [k1]phi(P)."""
+    x2 = BLS_X * BLS_X
+    n = len(ks)
+    digs = np.zeros((GLV_G1_LANES, n), dtype=object)
+    for i, k in enumerate(ks):
+        k = int(k) % ORDER_R
+        c1 = (2 * k * x2 + ORDER_R) // (2 * ORDER_R)
+        c2 = -((2 * k + ORDER_R) // (2 * ORDER_R))
+        digs[0][i] = k - c1 * x2 - c2 * (x2 - 1)
+        digs[1][i] = -c1 - c2 * x2
+    return _signed_digit_bits(digs, GLV_G1_NBITS)
 
 
 # ---------------------------------------------------------------------------

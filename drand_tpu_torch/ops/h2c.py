@@ -129,6 +129,13 @@ def _g1_recover_post(xm, y2, e, sign_bit):
     return (xm, y, L.ones_like(xm)), ok
 
 
+def g1_recover_y(x_can, sign_bit):
+    """x (canonical limbs), sign flag -> (Jacobian point, ok); ok is False
+    where x^3 + 4 is not a square (not on the curve).  One K1 launch."""
+    xm, y2 = _g1_y2(x_can)
+    return _g1_recover_post(xm, y2, L.pow_fixed(y2, _C1_EXP), sign_bit)
+
+
 def map_to_g1_jac(u):
     """SSWU + 11-isogeny: field element batch -> Jacobian points on E1."""
     tv4, ctx = _sswu_g1_pre(u)

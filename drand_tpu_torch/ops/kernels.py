@@ -1,9 +1,9 @@
 """The port's Hopper kernels: build, binding, wrappers and plain versions.
 
 Counterpart of drand_tpu/ops/pallas_field.py.  Every TPU kernel of the
-beacon verification paths (the RLC pass and the exact pass, both signature
-groups) has a hand-written CUDA C++ kernel (sources in ``csrc/``, target
-``sm_90a``):
+repository (beacon verification, batched signing, partial verification and
+recovery, both signature groups) has a hand-written CUDA C++ kernel
+(sources in ``csrc/``, target ``sm_90a``):
 
   K1 pow_fixed         <- pallas_field._pow_call          (csrc/pow.cu)
   K2 scalar_mul_fixed  <- pallas_field._ladder_fixed_call (csrc/ladder.cu,
@@ -11,6 +11,8 @@ groups) has a hand-written CUDA C++ kernel (sources in ``csrc/``, target
   K3 miller_loop       <- pallas_field._miller_call       (csrc/miller.cu)
   K4 final_exponentiation <- pallas_field._finalexp_call  (csrc/finalexp.cu)
   K5 pow_fixed_fp2     <- pallas_field._pow2_call         (csrc/pow2.cu)
+  K6 scalar_mul_bits   <- pallas_field._ladder_var_call   (csrc/ladder_var.cu,
+                                                           G1 and G2)
   K7 sum_tiles         <- pallas_field._sum_call          (csrc/sum.cu,
                                                            G1 and G2)
   K8 scalar_mul_glv_mixed <- pallas_field._ladder_glv_mixed_call
@@ -60,7 +62,8 @@ LAUNCHES = {"pow_fixed": 0, "scalar_mul_fixed": 0, "miller_loop": 0,
             "final_exponentiation": 0, "sum_tiles": 0,
             "scalar_mul_glv_mixed": 0, "pow_fixed_fp2": 0,
             "scalar_mul_fixed_g2": 0, "sum_tiles_g2": 0,
-            "scalar_mul_glv_mixed_g2": 0}
+            "scalar_mul_glv_mixed_g2": 0, "scalar_mul_bits": 0,
+            "scalar_mul_bits_g2": 0}
 # (wrapper, exponent / scalar / ladder bits / None, lanes)
 SHAPES = collections.Counter()
 
@@ -181,10 +184,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.drand_ladder_g2.argtypes = [vp, vp, vp, i32, i64, vp]
     lib.drand_sum_g2.argtypes = [vp, vp, i64, vp]
     lib.drand_glv_g2.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_ladder_var_g1.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_ladder_var_g2.argtypes = [vp, vp, vp, i32, i64, vp]
     for fn in (lib.drand_pow, lib.drand_ladder_g1, lib.drand_miller,
                lib.drand_finalexp, lib.drand_sum_g1, lib.drand_glv_g1,
                lib.drand_pow2, lib.drand_ladder_g2, lib.drand_sum_g2,
-               lib.drand_glv_g2):
+               lib.drand_glv_g2, lib.drand_ladder_var_g1,
+               lib.drand_ladder_var_g2):
         fn.restype = ctypes.c_int
     return lib
 
@@ -345,6 +351,45 @@ def scalar_mul_fixed(p, k: int):
     _check(fn(x.data_ptr(), out.data_ptr(), bits.data_ptr(), bits.numel(),
               x.shape[-1], _stream(x.device)), name)
     _count(name, k, x.shape[-1])
+    return _unflat(from_words(out, shape), g2)
+
+
+# ---------------------------------------------------------------------------
+# K6: scalar multiplication by one scalar per lane, G1 and G2
+# ---------------------------------------------------------------------------
+
+def scalar_mul_bits_plain(p, bits):
+    """Double-and-add MSB-first from infinity; every step computes the
+    complete add and selects it where the lane's bit is 1
+    (pallas_field._ladder_var_math over curve.DevCurve, either curve)."""
+    curve = _curve(p)
+    acc = curve.infinity_like(_leaf(p[0]))
+    for i in range(bits.shape[0]):
+        acc = curve.double(acc)
+        acc = curve.select(bits[i] == 1, curve.add(acc, p), acc)
+    return acc
+
+
+def scalar_mul_bits(p, bits):
+    """k_i * P_i for per-lane scalars: a Jacobian point of either curve
+    with batch shape S and MSB-first bits of shape (nbits,) + S.  Any batch
+    shape is flattened to lanes (pallas_field.scalar_mul_bits)."""
+    leaves = _flat(p)
+    if not _on_card(leaves[0]):
+        return scalar_mul_bits_plain(p, bits)
+    g2 = _is_g2(p)
+    shape = torch.broadcast_shapes(*(c.shape for c in leaves))[:-1]
+    x = to_words([c.expand(shape + (L.NLIMB,)) for c in leaves])
+    n = x.shape[-1]
+    nbits = bits.shape[0]
+    bt = bits.reshape(nbits, n).to(device=x.device,
+                                   dtype=torch.int32).contiguous()
+    out = torch.empty_like(x)
+    fn = _lib().drand_ladder_var_g2 if g2 else _lib().drand_ladder_var_g1
+    name = "scalar_mul_bits_g2" if g2 else "scalar_mul_bits"
+    _check(fn(x.data_ptr(), out.data_ptr(), bt.data_ptr(), nbits, n,
+              _stream(x.device)), name)
+    _count(name, nbits, n)
     return _unflat(from_words(out, shape), g2)
 
 

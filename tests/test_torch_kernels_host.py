@@ -313,3 +313,60 @@ def test_glv_g2_kernel_matches_plain(kernel_path):
     assert K.SHAPES == {("scalar_mul_glv_mixed_g2", 32, 4): 1}
     _same(K._flat(got), K._flat(K.scalar_mul_glv_mixed_plain(*tabs)))
     assert DC.G2.is_infinity(got).tolist() == [False, False, True, True]
+
+
+# ---------------------------------------------------------------------------
+# K6: one scalar per lane, G1 and G2
+# ---------------------------------------------------------------------------
+
+# Lane 0 of the G1 input below is the order-3 point (0, 2) (x = 0 makes
+# y^2 = b, an inflection point).  Its bits 1, 1, 1, 0, 1, 1 walk the
+# complete add through every case: T (infinite accumulator), 2T + T =
+# infinity (P == -Q), inf + T (infinite accumulator), 2T kept (zero bit),
+# then T + T twice (P == Q, the doubling).
+ORDER3_BITS = [1, 1, 1, 0, 1, 1]
+
+
+def _ladder_var_bits(nbits, lanes, zero_lane):
+    """Random MSB-first bits (lanes mix 0 and 1 on every row), lane 0 with
+    ORDER3_BITS in front (it is the order-3 point on G1), `zero_lane` an
+    all-zero scalar."""
+    b = torch.tensor([[RNG.randrange(2) for _ in range(lanes)]
+                      for _ in range(nbits)], dtype=torch.int32)
+    b[:len(ORDER3_BITS), 0] = torch.tensor(ORDER3_BITS)
+    b[:, zero_lane] = 0
+    return b
+
+
+def test_ladder_var_kernel_matches_plain(kernel_path):
+    """G1 at 130 bits (the GLV recovery width) over a (2, 4) batch: the
+    order-3 point, members, an outsider of G1, infinity, the generator and
+    an all-zero scalar; the wrapper flattens the batch to 8 lanes."""
+    x, y, z = _points()                  # 3 members, outsider, inf, gen
+    t3 = DC.encode_g1_points([(0, 2)])
+    pts = tuple(torch.cat([a, b, b[:1]]).reshape(2, 4, 24)
+                for a, b in zip(t3, (x, y, z)))
+    bits = _ladder_var_bits(130, 8, zero_lane=7).reshape(130, 2, 4)
+    got = K.scalar_mul_bits(pts, bits)
+    assert kernel_path["scalar_mul_bits"] == 1
+    assert K.SHAPES == {("scalar_mul_bits", 130, 8): 1}
+    _same(got, K.scalar_mul_bits_plain(pts, bits))
+    assert got[0].shape == (2, 4, 24)
+    inf = DC.G1.is_infinity(got).reshape(-1).tolist()
+    assert inf[5] and inf[7] and not any(inf[i] for i in (1, 2, 3, 6))
+
+
+def test_ladder_var_g2_kernel_matches_plain(kernel_path):
+    """G2 at 66 bits (the GLV recovery width): members, an outsider of G2,
+    infinity, the generator and an all-zero scalar.  (E2 has no rational
+    3-torsion, so no short scalar reaches the add's P == +-Q cases here;
+    chip_smoke.py reaches them with the scalars r and r + 2.)"""
+    pts = DC.encode_g2_points(_g2_points() + [HG2.gen])
+    bits = _ladder_var_bits(66, 6, zero_lane=5)
+    got = K.scalar_mul_bits(pts, bits)
+    assert kernel_path["scalar_mul_bits_g2"] == 1
+    assert kernel_path["scalar_mul_bits"] == 0
+    assert K.SHAPES == {("scalar_mul_bits_g2", 66, 6): 1}
+    _same(K._flat(got), K._flat(K.scalar_mul_bits_plain(pts, bits)))
+    inf = DC.G2.is_infinity(got).tolist()
+    assert inf[3] and inf[5] and not any(inf[i] for i in (1, 4))
