@@ -39,7 +39,10 @@ package's bench config 3), for ``bls-unchained-on-g1`` (``g1_*``) and
 
 Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
-timed.  Each phase prints one JSON line; the line before the
+timed; K3 and K4 (a warp a pairing lane) also at tail widths with a zero
+and a one lane, with each shape's dependent chain (ops/fp12prog.py), and
+their narrow launches split into per-step latencies by rerunning them
+with other loop bits.  Each phase prints one JSON line; the line before the
 last is the per-kernel table ({"kernels": [...]}), preceded by the card's
 name and power limit; the last is {"ok": true, "device": ...}.  Any failure
 exits non-zero before the last line.  Without a CUDA device, or without the
@@ -220,7 +223,9 @@ def code_ladder(k):
 
 
 FP12_MUL, FP12_SQR, CYCLO_SQR, FP6_SQR = 54, 36, 18, 12
-DBL_STEP = 4 * 2 + 3 + 3 + 2 * 2 + 2 * 2 + 3 + 3
+# kernels.dbl_step: four Fp2 squarings and Rx Ry, then hh^2, t2^2, g m and
+# t0 t4; its products by b2 = 4 (1 + u) and by 1/2 are adds and a halving
+DBL_STEP = 4 * 2 + 3 + 2 * 2 + 3 + 3
 ADD_STEP = 2 * 3 + 2 * 3 + 2 * 2 + 3 * 3 + 4 * 3
 SPARSE_LINE = 2 * 2 + 13 * 3            # ell scaled by P, then mul_by_014
 
@@ -233,10 +238,11 @@ def need_miller(xbits):
                  - (SPARSE_LINE - 2 * 2))
 
 
-def code_miller(xbits):
-    line = 2 * 2 + FP12_MUL
-    return _imad(len(xbits) * (FP12_SQR + DBL_STEP + line)
-                 + sum(xbits) * (ADD_STEP + line))
+def code_group(counts):
+    """K3 / K4 (csrc/miller.cu, finalexp.cu): what fp12prog's program does
+    for one lane (fp12prog.lane_counts), every product at 588; its linear
+    ops, and K4's binary-gcd Fp inverse, do no multiply-adds."""
+    return _imad(counts["products"])
 
 
 def _finalexp(xbits, fp2_inv, fp6_sqr, sqr_in_g, frob):
@@ -253,16 +259,21 @@ def _finalexp(xbits, fp2_inv, fp6_sqr, sqr_in_g, frob):
                     + (sqr_in_g + FP12_MUL) + FP12_MUL))
 
 
-def need_finalexp(xbits, inv_exp, frob_consts):
-    frob = {j: sum(0 if c == (1, 0) else 2 if c[1] == 0 else 3
-                   for c in frob_consts[j]) for j in (1, 2)}
-    fp2_inv = _imad(2, 2) + need_pow(inv_exp)   # norm, inverse, 2 products
+def _fp2_const_mul(c, p):
+    """Fp products of a product by the Fp2 constant c mod p: none by 1, two
+    when c0 or c1 is 0 or c0 = +-c1 (c0 (a0 -+ a1), c0 (a0 +- a1)), else 3."""
+    if c == (1, 0):
+        return 0
+    return 2 if 0 in (c[0], c[1], (c[0] - c[1]) % p, (c[0] + c[1]) % p) else 3
+
+
+def need_finalexp(xbits, frob_consts, p):
+    frob = {j: sum(_fp2_const_mul(c, p) for c in frob_consts[j])
+            for j in (1, 2)}
+    # norm, inverse, 2 products; a binary extended gcd inverts with no
+    # multiply-add, and one product takes its result into Montgomery form
+    fp2_inv = _imad(2, 2) + _imad(1)
     return _finalexp(xbits, fp2_inv, FP6_SQR, CYCLO_SQR, frob)
-
-
-def code_finalexp(xbits, inv_exp):
-    return _finalexp(xbits, _imad(4) + code_pow(inv_exp), 18, FP12_SQR,
-                     {1: 18, 2: 18})
 
 
 def need_glv(b0, b1):
@@ -419,6 +430,7 @@ def main():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     try:
         from drand_tpu_torch.ops import kernels as K
+        from drand_tpu_torch.ops import fp12prog as FP
         from drand_tpu_torch.ops import limbs as L
         from drand_tpu_torch.ops import tower as T
         from drand_tpu_torch.ops import curve as DC
@@ -1017,6 +1029,17 @@ def main():
                 words * lanes * WORD_BYTES / HBM_BYTES_PER_S * 1e3)
 
     xbits = K.XLOOP_BITS
+    # K3 / K4 launch a warp a lane with the lane's slots in dynamic shared
+    # memory (csrc/group.cuh): record that layout
+    group_layout = {}
+    for kname, kind in (("miller_loop", "miller"),
+                        ("final_exponentiation", "finalexp")):
+        lanes_pb, smem = K.group_layout(kind)
+        group_layout[kname] = {
+            "threads_per_lane": FP.GROUP,
+            "slots_per_lane": FP.compiled(kind)[1],
+            "lanes_per_block": lanes_pb,
+            "dynamic_smem_bytes_per_block": smem}
     # (kernel, source, TPU kernel, [(label, exponent/scalar/bits, lanes,
     #  kernel call, plain call, compare, (need, code) multiply-adds per lane,
     #  words per lane)]) at the shapes the paths give each kernel; the
@@ -1031,8 +1054,29 @@ def main():
           (rand_fp(2 * pad), rand_fp(2 * pad)))
     m2 = (mx[:2], my[:2], ((mq[0][0][:2], mq[0][1][:2]),
                            (mq[1][0][:2], mq[1][1][:2])))
-    fe = T.fp12_pack([rand_fp(pad) for _ in range(12)])
+    # K4's wide input ends in a zero and a one lane; the 1-lane input is
+    # random (outside the cyclotomic subgroup, as every lane here)
+    zero_one = lambda i: L.encode_mont([0, int(i == 0)], dev)
+    fe = T.fp12_pack([torch.cat([rand_fp(pad - 2), zero_one(i)])
+                      for i in range(12)])
     fe1 = T.fp12_pack([c[:1] for c in T.fp12_leaves(fe)])
+    # tails: 5 K4 lanes (no multiple of its 3 lanes a block) and 7 K3 pairs
+    # (of 4), each with a zero and a one lane
+    fe5 = T.fp12_pack([torch.cat([zero_one(i), rand_fp(3)])
+                       for i in range(12)])
+    m7 = [torch.cat([L.encode_mont([0, 1], dev), rand_fp(5)])
+          for _ in range(6)]
+    m7 = (m7[0], m7[1], ((m7[2], m7[3]), (m7[4], m7[5])))
+    # the group kernels' own counts: one lane's products (code), and the
+    # dependent products and linear steps of its chain
+    group_counts = {k: FP.lane_counts(k, xbits)
+                    for k in ("miller", "finalexp")}
+
+    def chain(kind):
+        c = group_counts[kind]
+        return {"code_products_per_lane": c["products"],
+                "critical_products": c["critical_products"],
+                "critical_linear_steps": c["critical_linear"]}
     leaves = T.fp12_leaves
     e_sqrt, e_inv = (P - 3) // 4, P - 2
     # K8 at 2N: the tables of [S, H] lanes as g1_glv_msm_terms builds them,
@@ -1118,22 +1162,39 @@ def main():
             ("2N pairs", None, 2 * pad, lambda: K.miller_loop(mx, my, mq),
              lambda: K.miller_loop_plain(mx, my, mq),
              lambda a, b: err(leaves(a), leaves(b)),
-             (need_miller(xbits), code_miller(xbits)), 18),
+             (need_miller(xbits), code_group(group_counts["miller"])), 18,
+             chain("miller")),
             ("2 pairs", None, 2, lambda: K.miller_loop(*m2),
              lambda: K.miller_loop_plain(*m2),
              lambda a, b: err(leaves(a), leaves(b)),
-             (need_miller(xbits), code_miller(xbits)), 18)]),
+             (need_miller(xbits), code_group(group_counts["miller"])), 18,
+             chain("miller")),
+            ("7 pairs, zero and one lanes (check)", None, 7,
+             lambda: K.miller_loop(*m7), lambda: K.miller_loop_plain(*m7),
+             lambda a, b: err(leaves(a), leaves(b)),
+             (need_miller(xbits), code_group(group_counts["miller"])), 18,
+             chain("miller"))]),
         ("final_exponentiation", "finalexp.cu", 1093, "K4", ("k_finalexp",), [
-            ("N lanes", None, pad, lambda: K.final_exponentiation(fe),
+            ("N lanes, last two zero and one", None, pad,
+             lambda: K.final_exponentiation(fe),
              lambda: K.final_exponentiation_plain(fe),
              lambda a, b: err(leaves(a), leaves(b)),
-             (need_finalexp(xbits, K.INV_EXP, HF.FROB),
-              code_finalexp(xbits, K.INV_EXP)), 24),
+             (need_finalexp(xbits, HF.FROB, P),
+              code_group(group_counts["finalexp"])), 24,
+             chain("finalexp")),
             ("1 lane", None, 1, lambda: K.final_exponentiation(fe1),
              lambda: K.final_exponentiation_plain(fe1),
              lambda a, b: err(leaves(a), leaves(b)),
-             (need_finalexp(xbits, K.INV_EXP, HF.FROB),
-              code_finalexp(xbits, K.INV_EXP)), 24)]),
+             (need_finalexp(xbits, HF.FROB, P),
+              code_group(group_counts["finalexp"])), 24,
+             chain("finalexp")),
+            ("5 lanes, zero and one (check)", None, 5,
+             lambda: K.final_exponentiation(fe5),
+             lambda: K.final_exponentiation_plain(fe5),
+             lambda a, b: err(leaves(a), leaves(b)),
+             (need_finalexp(xbits, HF.FROB, P),
+              code_group(group_counts["finalexp"])), 24,
+             chain("finalexp"))]),
         ("sum_tiles", "sum.cu", 1187, "K7 G1", ("k_sum_g1",), sum_shapes),
         ("scalar_mul_glv_mixed", "glv.cu", 1298, "K8 G1", ("k_glv_g1",), [
             ("64 bits at 2N", 64, 2 * pad,
@@ -1249,14 +1310,16 @@ def main():
                     lambda: K.miller_loop(px, py, q),
                     lambda: K.miller_loop_plain(px, py, q),
                     lambda a, b: err(leaves(a), leaves(b)),
-                    (need_miller(xbits), code_miller(xbits)), 18)
+                    (need_miller(xbits), code_group(group_counts["miller"])),
+                    18, chain("miller"))
         if kname == "final_exponentiation":
             f = T.fp12_pack([rand_fp_dev(lanes) for _ in range(12)])
             return (label, key, lanes, lambda: K.final_exponentiation(f),
                     lambda: K.final_exponentiation_plain(f),
                     lambda a, b: err(leaves(a), leaves(b)),
-                    (need_finalexp(xbits, K.INV_EXP, HF.FROB),
-                     code_finalexp(xbits, K.INV_EXP)), 24)
+                    (need_finalexp(xbits, HF.FROB, P),
+                     code_group(group_counts["finalexp"])), 24,
+                    chain("finalexp"))
         if kname.startswith("sum_tiles"):
             pts = spread(special[g2k], lanes)
             add_need = _imad(G2_ADD_NEED) if g2k else None
@@ -1311,7 +1374,7 @@ def main():
     for kname, src, line, tpu, needles, shapes in specs:
         ms = pms = ops_ms = bytes_ms = code_ms = 0.0
         max_err, detail = 0, []
-        for label, key, lanes, kfn, pfn, cmp, imads, words in shapes:
+        for label, key, lanes, kfn, pfn, cmp, imads, words, *extra in shapes:
             counts = {p: sh.get((kname, key, lanes), 0)
                       for p, (_, sh) in ran.items()}
             count = sum(counts.values())
@@ -1339,7 +1402,8 @@ def main():
                            "ms": k_ms, "plain_ms": p_ms,
                            "bound_ms": max(o_ms, b_ms), "code_ops_ms": c_ms,
                            "imads_per_lane": imads[0],
-                           "code_imads_per_lane": imads[1]})
+                           "code_imads_per_lane": imads[1],
+                           **(extra[0] if extra else {})})
         launched = sum(lc[kname] for lc, _ in ran.values())
         if sum(sum(d["launches"].values()) for d in detail) != launched:
             fail(f"{kname}: per-shape launches {detail} do not add up to "
@@ -1357,6 +1421,7 @@ def main():
                          f"signature groups, the threshold phases at {nrp} "
                          f"rounds x {THRESHOLD} partials",
             "per_shape": detail, "ptxas": entry_stats(regs, src, *needles),
+            "group": group_layout.get(kname),
             "device": name, "nvidia_smi": smi_line})
     emit({"phase": "kernels_vs_plain", "tolerance": "exact (integer "
           "arithmetic): max |kernel - plain| over 16-bit limbs",
@@ -1435,7 +1500,37 @@ def main():
                 "kernels_ms": path_ms[run],
                 "plain_glue_ms": pass_s_ * 1e3 - path_ms[run]}
 
+    # Inside the narrow K3 / K4 launches: the same calls with other loop
+    # bits give each program fragment's latency on one lane (a loop of
+    # zero bits runs the square step alone, of one bits the square and the
+    # add step), and the fixed part (wrapper, set-up, K4's inverse and
+    # the steps between its chains).  Not main-path launches.
+    def chain_split():
+        saved = K.XLOOP_BITS
+        f1 = lambda: K.final_exponentiation(fe1)
+        m_2 = lambda: K.miller_loop(*m2)
+        t = {}
+        try:
+            for label, bits in (("none", []), ("zeros", [0] * 63),
+                                ("ones", [1] * 63)):
+                K.XLOOP_BITS = bits
+                t[label] = (timed(f1, args.reps), timed(m_2, args.reps))
+        finally:
+            K.XLOOP_BITS = saved
+        k4_sq = (t["zeros"][0] - t["none"][0]) / (5 * 63) * 1e3
+        k3_sq = (t["zeros"][1] - t["none"][1]) / 63 * 1e3
+        return {"k4_1_lane_fixed_ms": t["none"][0],
+                "k4_cyclotomic_square_us": k4_sq,
+                "k4_dense_product_us":
+                    (t["ones"][0] - t["zeros"][0]) / (5 * 63) * 1e3,
+                "k3_2_pairs_fixed_ms": t["none"][1],
+                "k3_double_step_us": k3_sq,
+                "k3_add_step_us": (t["ones"][1] - t["zeros"][1]) / 63 * 1e3,
+                "fragments": {k: FP.frag_stats(k)
+                              for k in ("miller", "finalexp")}}
+
     emit({"phase": "where_the_time_goes", "rounds": n,
+          "k3_k4_narrow_launches": chain_split(),
           "rlc_stages_ms": stages, "g2_rlc_stages_ms": st2,
           "verify_batch_rlc": split(rlc_pack_s, rlc_pass_s,
                                     "verify_batch_rlc"),

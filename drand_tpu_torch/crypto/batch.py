@@ -233,21 +233,34 @@ def hash_msgs_to_field_g2(msgs, dst, device):
 
 def _rlc_keys():
     """Two independent 64-bit generator seeds: 128 bits of key material for
-    the device randomizer stream.  The two streams are XORed, so EQUAL
-    halves would cancel to all-zero coefficients and the pairing check
-    would pass vacuously: resample, so that event cannot happen."""
-    raw = secrets.token_bytes(16)
-    while raw[:8] == raw[8:]:
+    the device randomizer stream.  The streams they seed are XORed, so
+    equal streams would cancel to all-zero coefficients and the pairing
+    check would pass vacuously.  A CUDA generator takes a whole 64-bit key;
+    the CPU generator keeps only a seed's low 32 bits, so there each 32-bit
+    word of the keys seeds a stream of its own (_stream_seeds).  Resample
+    until the four words differ, so that no two streams can cancel on
+    either device."""
+    while True:
         raw = secrets.token_bytes(16)
-    return (int.from_bytes(raw[:8], "little"),
-            int.from_bytes(raw[8:], "little"))
+        if len({raw[i:i + 4] for i in range(0, 16, 4)}) == 4:
+            return (int.from_bytes(raw[:8], "little"),
+                    int.from_bytes(raw[8:], "little"))
+
+
+def _stream_seeds(keys, dev):
+    """The seeds of the XORed streams: the 64-bit keys on the card, their
+    32-bit words (low word first) on the CPU."""
+    if dev.type == "cuda":
+        return list(keys)
+    return [k >> s & 0xFFFFFFFF for k in keys for s in (0, 32)]
 
 
 def _device_rlc_bits(keys, mask, split: int = 2):
     """Uniform RLC randomizer bits drawn ON THE DEVICE, fresh per pass: the
-    XOR of two streams, each from its own ``torch.Generator`` seeded with
-    one 64-bit key, so predicting them needs both keys.  (The JAX package
-    XORs two threefry streams the same way; the bits themselves differ.)
+    XOR of streams, each from its own ``torch.Generator``, seeded with the
+    two 64-bit keys (CUDA) or their four 32-bit words (CPU), so predicting
+    them needs all 128 bits of key.  (The JAX package XORs two threefry
+    streams the same way; the bits themselves differ.)
     Lanes where `mask` is False get zero coefficients.  Returns the 128-bit
     coefficient in split form, `split` (128/split, pad) int32 MSB-first
     planes: split=2 gives (b0, b1) with k = k0 + lambda*k1
@@ -255,9 +268,9 @@ def _device_rlc_bits(keys, mask, split: int = 2):
     k = k0 + x k1 + x^2 k2 + x^3 k3 (the G2 psi split)."""
     dev, pad = mask.device, mask.shape[0]
     w = None
-    for key in keys:
+    for seed in _stream_seeds(keys, dev):
         gen = torch.Generator(device=dev)
-        gen.manual_seed(key)
+        gen.manual_seed(seed)
         words = torch.randint(0, 1 << 32, (SECURITY_BITS // 32, pad),
                               generator=gen, device=dev, dtype=torch.int64)
         w = words if w is None else w ^ words

@@ -1,23 +1,25 @@
-// BLS12-381 field tower and the G1 and G2 group laws for the port's Hopper
-// kernels.
+// BLS12-381 Fp and Fp2 arithmetic and the G1 and G2 group laws for the
+// port's Hopper kernels.
 //
-// One thread owns one lane.  An Fp element is 12 x 32-bit little-endian
-// words in Montgomery form with R = 2^384 -- the same Montgomery values as
-// the plain engine's 24 x 16-bit limbs (drand_tpu_torch/ops/limbs.py), so
-// the wrappers only regroup words.  Every function returns canonical values
-// (< p), as the plain engine does.
+// In the point kernels one thread owns one lane; the Fp12 kernels (K3, K4)
+// run a warp a lane over this header's Fp product and sum (group.cuh).  An
+// Fp element is 12 x 32-bit little-endian words in Montgomery form with
+// R = 2^384 -- the same Montgomery values as the plain engine's 24 x 16-bit
+// limbs (drand_tpu_torch/ops/limbs.py), so the wrappers only regroup words.
+// Every function returns canonical values (< p), as the plain engine does.
 //
 // Replaces the lane-layout field layer of the TPU kernels
-// (drand_tpu/ops/pallas_field.py: pf_mul, _norm, _cond_sub_p and the
-// pf2/pf6/pf12 tower copies).  On the TPU the limbs lay on sublanes and a
-// product was 24 vector multiply-accumulates over 16-bit limbs; here a
-// product is a CIOS Montgomery multiplication on 32-bit words in registers,
-// 2 x 144 word products (lo and hi halves) per multiply, which is what bounds
-// every kernel of this file on the card (integer multiply-adds).
+// (drand_tpu/ops/pallas_field.py: pf_mul, _norm, _cond_sub_p and the pf2
+// tower copy; the pf6/pf12 formulas live in ops/fp12prog.py).  On the TPU
+// the limbs lay on sublanes and a product was 24 vector multiply-accumulates
+// over 16-bit limbs; here a product is a CIOS Montgomery multiplication on
+// 32-bit words in registers, 2 x 144 word products (lo and hi halves) per
+// multiply, which is what bounds every kernel of this file on the card
+// (integer multiply-adds).
 //
 // Formulas that fix a projective representative (the G1 and G2 Jacobian
-// double and complete add, the mixed add, the Miller-loop steps) follow the
-// JAX package step for step; field products, inverses and powers have unique values, so those
+// double and complete add, the mixed add) follow the JAX package step for
+// step; field products, inverses and powers have unique values, so those
 // may use any correct formula.
 //
 // The header also compiles as plain C++ (no __CUDACC__): the same lane code
@@ -43,8 +45,6 @@ namespace drand {
 
 struct Fp { uint32_t v[12]; };
 struct Fp2 { Fp c0, c1; };
-struct Fp6 { Fp2 c0, c1, c2; };
-struct Fp12 { Fp6 c0, c1; };
 
 CMEM uint32_t kP[12] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u,
@@ -198,11 +198,6 @@ DI void fp_pow_bits(Fp& r, const Fp& x, const int32_t* bits, int nbits) {
 // Fp2 = Fp[u]/(u^2 + 1)
 // ---------------------------------------------------------------------------
 
-DI void fp2_load_const(Fp2& r, const uint32_t* consts, int row0, int row1) {
-  fp_load_const(r.c0, consts + 12 * row0);
-  fp_load_const(r.c1, consts + 12 * row1);
-}
-
 DI void fp2_zero(Fp2& r) { fp_zero(r.c0); fp_zero(r.c1); }
 DI void fp2_one(Fp2& r) { fp_one(r.c0); fp_zero(r.c1); }
 
@@ -219,31 +214,6 @@ DI void fp2_sub(Fp2& r, const Fp2& a, const Fp2& b) {
 DI void fp2_neg(Fp2& r, const Fp2& a) {
   fp_neg(r.c0, a.c0);
   fp_neg(r.c1, a.c1);
-}
-
-DI void fp2_conj(Fp2& r, const Fp2& a) {
-  r.c0 = a.c0;
-  fp_neg(r.c1, a.c1);
-}
-
-DI void fp2_triple(Fp2& r, const Fp2& a) {
-  Fp2 t;
-  fp2_add(t, a, a);
-  fp2_add(r, t, a);
-}
-
-// (c0 + c1 u)(1 + u) = (c0 - c1) + (c0 + c1) u
-DI void fp2_mul_xi(Fp2& r, const Fp2& a) {
-  Fp t0, t1;
-  fp_sub(t0, a.c0, a.c1);
-  fp_add(t1, a.c0, a.c1);
-  r.c0 = t0;
-  r.c1 = t1;
-}
-
-DI void fp2_mul_fp(Fp2& r, const Fp2& a, const Fp& k) {
-  fp_mul(r.c0, a.c0, k);
-  fp_mul(r.c1, a.c1, k);
 }
 
 DNI void fp2_mul(Fp2& r, const Fp2& a, const Fp2& b) {
@@ -265,180 +235,6 @@ DNI void fp2_sqr(Fp2& r, const Fp2& a) {
   fp_mul(m, a.c0, a.c1);
   fp_mul(r.c0, s, d);
   fp_add(r.c1, m, m);
-}
-
-DI bool fp2_is_zero(const Fp2& a) { return fp_is_zero(a.c0) && fp_is_zero(a.c1); }
-
-// 1/a: one Fermat chain (bits of p - 2) on the norm
-DNI void fp2_inv(Fp2& r, const Fp2& a, const int32_t* invbits, int ninv) {
-  Fp t0, t1, n, ni;
-  fp_sqr(t0, a.c0);
-  fp_sqr(t1, a.c1);
-  fp_add(n, t0, t1);
-  fp_pow_bits(ni, n, invbits, ninv);
-  fp_mul(r.c0, a.c0, ni);
-  fp_mul(t1, a.c1, ni);
-  fp_neg(r.c1, t1);
-}
-
-// ---------------------------------------------------------------------------
-// Fp6 = Fp2[v]/(v^3 - xi)
-// ---------------------------------------------------------------------------
-
-DI void fp6_zero(Fp6& r) { fp2_zero(r.c0); fp2_zero(r.c1); fp2_zero(r.c2); }
-DI void fp6_one(Fp6& r) { fp2_one(r.c0); fp2_zero(r.c1); fp2_zero(r.c2); }
-
-DI void fp6_add(Fp6& r, const Fp6& a, const Fp6& b) {
-  fp2_add(r.c0, a.c0, b.c0);
-  fp2_add(r.c1, a.c1, b.c1);
-  fp2_add(r.c2, a.c2, b.c2);
-}
-
-DI void fp6_sub(Fp6& r, const Fp6& a, const Fp6& b) {
-  fp2_sub(r.c0, a.c0, b.c0);
-  fp2_sub(r.c1, a.c1, b.c1);
-  fp2_sub(r.c2, a.c2, b.c2);
-}
-
-DI void fp6_neg(Fp6& r, const Fp6& a) {
-  fp2_neg(r.c0, a.c0);
-  fp2_neg(r.c1, a.c1);
-  fp2_neg(r.c2, a.c2);
-}
-
-// (a0 + a1 v + a2 v^2) v = xi a2 + a0 v + a1 v^2
-DI void fp6_mul_by_v(Fp6& r, const Fp6& a) {
-  Fp2 t;
-  fp2_mul_xi(t, a.c2);
-  r.c2 = a.c1;
-  r.c1 = a.c0;
-  r.c0 = t;
-}
-
-DNI void fp6_mul(Fp6& r, const Fp6& a, const Fp6& b) {
-  Fp2 t0, t1, t2, x, y, c0, c1, c2;
-  fp2_mul(t0, a.c0, b.c0);
-  fp2_mul(t1, a.c1, b.c1);
-  fp2_mul(t2, a.c2, b.c2);
-  // c0 = t0 + xi ((a1 + a2)(b1 + b2) - t1 - t2)
-  fp2_add(x, a.c1, a.c2);
-  fp2_add(y, b.c1, b.c2);
-  fp2_mul(c0, x, y);
-  fp2_sub(c0, c0, t1);
-  fp2_sub(c0, c0, t2);
-  fp2_mul_xi(c0, c0);
-  fp2_add(c0, c0, t0);
-  // c1 = (a0 + a1)(b0 + b1) - t0 - t1 + xi t2
-  fp2_add(x, a.c0, a.c1);
-  fp2_add(y, b.c0, b.c1);
-  fp2_mul(c1, x, y);
-  fp2_sub(c1, c1, t0);
-  fp2_sub(c1, c1, t1);
-  fp2_mul_xi(x, t2);
-  fp2_add(c1, c1, x);
-  // c2 = (a0 + a2)(b0 + b2) - t0 - t2 + t1
-  fp2_add(x, a.c0, a.c2);
-  fp2_add(y, b.c0, b.c2);
-  fp2_mul(c2, x, y);
-  fp2_sub(c2, c2, t0);
-  fp2_sub(c2, c2, t2);
-  fp2_add(c2, c2, t1);
-  r.c0 = c0;
-  r.c1 = c1;
-  r.c2 = c2;
-}
-
-DNI void fp6_inv(Fp6& r, const Fp6& a, const int32_t* invbits, int ninv) {
-  Fp2 c0, c1, c2, t, u;
-  fp2_sqr(c0, a.c0);          // c0 = a0^2 - xi a1 a2
-  fp2_mul(t, a.c1, a.c2);
-  fp2_mul_xi(t, t);
-  fp2_sub(c0, c0, t);
-  fp2_sqr(c1, a.c2);          // c1 = xi a2^2 - a0 a1
-  fp2_mul_xi(c1, c1);
-  fp2_mul(t, a.c0, a.c1);
-  fp2_sub(c1, c1, t);
-  fp2_sqr(c2, a.c1);          // c2 = a1^2 - a0 a2
-  fp2_mul(t, a.c0, a.c2);
-  fp2_sub(c2, c2, t);
-  fp2_mul(t, a.c1, c2);       // tt = xi (a1 c2 + a2 c1) + a0 c0
-  fp2_mul(u, a.c2, c1);
-  fp2_add(t, t, u);
-  fp2_mul_xi(t, t);
-  fp2_mul(u, a.c0, c0);
-  fp2_add(t, t, u);
-  fp2_inv(t, t, invbits, ninv);
-  fp2_mul(r.c0, c0, t);
-  fp2_mul(r.c1, c1, t);
-  fp2_mul(r.c2, c2, t);
-}
-
-// ---------------------------------------------------------------------------
-// Fp12 = Fp6[w]/(w^2 - v)
-// ---------------------------------------------------------------------------
-
-DI void fp12_one(Fp12& r) { fp6_one(r.c0); fp6_zero(r.c1); }
-
-DI void fp12_conj(Fp12& r, const Fp12& a) {
-  r.c0 = a.c0;
-  fp6_neg(r.c1, a.c1);
-}
-
-DNI void fp12_mul(Fp12& r, const Fp12& a, const Fp12& b) {
-  Fp6 t0, t1, t2, x, y;
-  fp6_mul(t0, a.c0, b.c0);
-  fp6_mul(t1, a.c1, b.c1);
-  fp6_add(x, a.c0, a.c1);
-  fp6_add(y, b.c0, b.c1);
-  fp6_mul(t2, x, y);
-  fp6_mul_by_v(x, t1);
-  fp6_add(r.c0, t0, x);
-  fp6_sub(t2, t2, t0);
-  fp6_sub(r.c1, t2, t1);
-}
-
-DNI void fp12_sqr(Fp12& r, const Fp12& a) {
-  Fp6 tt, x, y, c0;
-  fp6_mul(tt, a.c0, a.c1);
-  fp6_add(x, a.c0, a.c1);
-  fp6_mul_by_v(y, a.c1);
-  fp6_add(y, a.c0, y);
-  fp6_mul(c0, x, y);
-  fp6_sub(c0, c0, tt);
-  fp6_mul_by_v(x, tt);
-  fp6_sub(r.c0, c0, x);
-  fp6_add(r.c1, tt, tt);
-}
-
-DNI void fp12_inv(Fp12& r, const Fp12& a, const int32_t* invbits, int ninv) {
-  Fp6 t0, t1, c0, c1;
-  fp6_mul(t0, a.c0, a.c0);
-  fp6_mul(t1, a.c1, a.c1);
-  fp6_mul_by_v(t1, t1);
-  fp6_sub(t0, t0, t1);
-  fp6_inv(t0, t0, invbits, ninv);
-  fp6_mul(c0, a.c0, t0);
-  fp6_mul(c1, a.c1, t0);
-  r.c0 = c0;
-  fp6_neg(r.c1, c1);
-}
-
-// a^(p^j), j in {1, 2}: coefficient i of a = sum c_i w^i is conjugated for
-// odd j and scaled by the bundle's frob{j}_i constant.
-DNI void fp12_frobenius(Fp12& r, const Fp12& a, int j, const uint32_t* consts) {
-  const Fp2* cs[6] = {&a.c0.c0, &a.c1.c0, &a.c0.c1, &a.c1.c1, &a.c0.c2, &a.c1.c2};
-  Fp2 out[6];
-  const int base = (j == 1) ? C_FROB1 : C_FROB2;
-  for (int i = 0; i < 6; i++) {
-    Fp2 c, g;
-    if (j & 1) fp2_conj(c, *cs[i]);
-    else c = *cs[i];
-    fp2_load_const(g, consts, base + 2 * i, base + 2 * i + 1);
-    fp2_mul(out[i], c, g);
-  }
-  r.c0.c0 = out[0]; r.c1.c0 = out[1];
-  r.c0.c1 = out[2]; r.c1.c1 = out[3];
-  r.c0.c2 = out[4]; r.c1.c2 = out[5];
 }
 
 // ---------------------------------------------------------------------------
@@ -645,8 +441,8 @@ DNI void g1_add_mixed(G1J& r, const G1J& p, const G1A& q) {
 // G2 Jacobian group law over Fp2: the same formulas as G1 (the JAX
 // DevCurve is generic over its field), product group by product group.  A
 // G2 point is 72 words, so its temporaries live in local memory; the
-// functions are __noinline__, as the Fp12 tower is, to keep the three
-// kernels that call them within the register file and the build short.
+// functions are __noinline__ to keep the kernels that call them within the
+// register file and the build short.
 // ---------------------------------------------------------------------------
 
 struct G2J { Fp2 X, Y, Z; };
@@ -657,6 +453,8 @@ DI void g2_infinity(G2J& r) {
   fp2_one(r.Y);
   fp2_zero(r.Z);
 }
+
+DI bool fp2_is_zero(const Fp2& a) { return fp_is_zero(a.c0) && fp_is_zero(a.c1); }
 
 DI bool fp2_eq(const Fp2& a, const Fp2& b) {
   return fp_eq(a.c0, b.c0) && fp_eq(a.c1, b.c1);
@@ -897,21 +695,6 @@ DI void point_select(G1J& r, bool c, const G1J& a, const G1J& b) {
 }
 DI void point_select(G2J& r, bool c, const G2J& a, const G2J& b) {
   g2_select(r, c, a, b);
-}
-
-// Fp12 leaves in (c6, c2, c) nesting order: 12 coordinates
-DI void load_fp12(Fp12& f, const uint32_t* base, int64_t B, int64_t lane) {
-  Fp* leaves[12] = {&f.c0.c0.c0, &f.c0.c0.c1, &f.c0.c1.c0, &f.c0.c1.c1,
-                    &f.c0.c2.c0, &f.c0.c2.c1, &f.c1.c0.c0, &f.c1.c0.c1,
-                    &f.c1.c1.c0, &f.c1.c1.c1, &f.c1.c2.c0, &f.c1.c2.c1};
-  for (int i = 0; i < 12; i++) load_fp(*leaves[i], base, i, B, lane);
-}
-
-DI void store_fp12(uint32_t* base, const Fp12& f, int64_t B, int64_t lane) {
-  const Fp* leaves[12] = {&f.c0.c0.c0, &f.c0.c0.c1, &f.c0.c1.c0, &f.c0.c1.c1,
-                          &f.c0.c2.c0, &f.c0.c2.c1, &f.c1.c0.c0, &f.c1.c0.c1,
-                          &f.c1.c1.c0, &f.c1.c1.c1, &f.c1.c2.c0, &f.c1.c2.c1};
-  for (int i = 0; i < 12; i++) store_fp(base, i, *leaves[i], B, lane);
 }
 
 }  // namespace drand

@@ -1,101 +1,62 @@
 // K4: the final exponentiation f^((p^12 - 1)/r), times 3 in the hard part.
 //
 // Replaces drand_tpu/ops/pallas_field.py _finalexp_call (_finalexp_math)
-// and follows its chain exactly: the easy part through fp12_inv (whose Fp
-// inverse is the p-2 Fermat chain), then the five pow_x chains, Frobenius
-// maps and conjugations in the same order.
+// and follows its chain: the easy part f = conj(f) / f, f = frob2(f) f;
+// then the five pow_x chains, Frobenius maps and conjugations in the same
+// order.  Field values are unique, so the formulas are free: the Fp12
+// inverse goes down the tower to one Fp inverse (binary extended gcd on
+// one thread, group.cuh fp_inv, in place of the p-2 chain), and pow_x
+// squares by Granger-Scott (18 products in place of 36), valid because the
+// easy part has mapped every nonzero input into the cyclotomic subgroup
+// (and zero stays zero).
 //
-// Bound on this card: integer multiply-adds (five 63-bit pow_x chains of
-// Fp12 squarings, ~320 squarings and ~45 multiplications of Fp12 a lane).
-// Design: one thread per lane, the Fp12 values in local memory, tower
-// functions out of line; exponent bits are uniform across the warp.
+// Bound on this card: the latency of one lane's chain of dependent
+// products at the one-lane launch of every RLC pass, integer multiply-adds
+// at the exact passes' 8192-14,336 lanes.  Design: a warp per lane
+// (group.cuh), the Fp12 values (f, the chain's base and accumulator, e1,
+// e2, the inverse's pieces) and temporaries in shared memory; each step is
+// a program of fp12prog.py ("finalexp"): a cyclotomic squaring is one
+// product phase of 18, a dense product one of 54.  A lane walks
+// fp12prog's schedule (the five pow_x loops over the bits of |x|), the same
+// for every lane.
 
-#include "field.cuh"
+#include "group.cuh"
 
 using namespace drand;
 
-// g^x for x < 0 on the cyclotomic subgroup: conj(g^|x|), bits of |x|
-// after the leading one
-DNI void pow_x(Fp12& r, const Fp12& g, const int32_t* xbits, int nxbits) {
-  Fp12 acc = g;
-  for (int i = 0; i < nxbits; i++) {
-    fp12_sqr(acc, acc);
-    if (xbits[i]) fp12_mul(acc, acc, g);
-  }
-  fp12_conj(r, acc);
-}
-
-DNI void finalexp(Fp12& out, const Fp12& fin, const uint32_t* consts,
-                  const int32_t* xbits, int nxbits, const int32_t* invbits,
-                  int ninv) {
-  Fp12 f, t, u, e1, e2, e3;
-  // easy part: f^((p^6 - 1)(p^2 + 1))
-  fp12_conj(t, fin);
-  fp12_inv(u, fin, invbits, ninv);
-  fp12_mul(f, t, u);
-  fp12_frobenius(t, f, 2, consts);
-  fp12_mul(f, t, f);
-  // hard part
-  pow_x(t, f, xbits, nxbits);               // e1 = f^x * conj(f)
-  fp12_conj(u, f);
-  fp12_mul(e1, t, u);
-  pow_x(t, e1, xbits, nxbits);              // e1 = e1^x * conj(e1)
-  fp12_conj(u, e1);
-  fp12_mul(e1, t, u);
-  pow_x(t, e1, xbits, nxbits);              // e2 = e1^x * frob1(e1)
-  fp12_frobenius(u, e1, 1, consts);
-  fp12_mul(e2, t, u);
-  pow_x(t, e2, xbits, nxbits);              // e3 = (e2^x)^x * frob2(e2) * conj(e2)
-  pow_x(t, t, xbits, nxbits);
-  fp12_frobenius(u, e2, 2, consts);
-  fp12_mul(e3, t, u);
-  fp12_conj(u, e2);
-  fp12_mul(e3, e3, u);
-  fp12_sqr(t, f);                           // f3 = f^2 * f
-  fp12_mul(t, t, f);
-  fp12_mul(out, e3, t);
-}
-
-DI void finalexp_lane(const uint32_t* in, uint32_t* out, const uint32_t* consts,
-                      const int32_t* xbits, int nxbits, const int32_t* invbits,
-                      int ninv, int64_t B, int64_t lane) {
-  Fp12 f, r;
-  load_fp12(f, in, B, lane);
-  finalexp(r, f, consts, xbits, nxbits, invbits, ninv);
-  store_fp12(out, r, B, lane);
-}
+// slots 0-11: the Fp12 leaves in; slots 0-11: the Fp12 leaves out
+constexpr int NIN = 12;
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(64) k_finalexp(const uint32_t* in,
-                                                 uint32_t* out,
-                                                 const uint32_t* consts,
-                                                 const int32_t* xbits,
-                                                 int nxbits,
-                                                 const int32_t* invbits,
-                                                 int ninv, int64_t B) {
-  const int64_t lane = DRAND_LANE_INDEX();
-  if (lane < B)
-    finalexp_lane(in, out, consts, xbits, nxbits, invbits, ninv, B, lane);
+__global__ void __launch_bounds__(GROUP * GROUP_MAX_LANES)
+    k_finalexp(const uint32_t* in, uint32_t* out, const uint32_t* consts,
+             const int32_t* prog, const int32_t* sched, int nsched,
+             int64_t B) {
+  extern __shared__ Fp smem[];
+  const GroupProg g = group_prog(prog);
+  int64_t idx;
+  Fp* lane = group_enter(smem, consts, g.nslots, B, &idx);
+  if (lane) group_lane(g, lane, smem, in, NIN, out, sched, nsched, B, idx);
 }
 
 extern "C" int drand_finalexp(const void* in, void* out, const void* consts,
-                              const void* xbits, int nxbits,
-                              const void* invbits, int ninv, int64_t B,
-                              void* stream) {
-  DRAND_LAUNCH(k_finalexp, B, 64, stream, (const uint32_t*)in, (uint32_t*)out,
-               (const uint32_t*)consts, (const int32_t*)xbits, nxbits,
-               (const int32_t*)invbits, ninv, B);
+                            const void* prog, int nslots, const void* sched,
+                            int nsched, int64_t B, void* stream) {
+  DRAND_GROUP_LAUNCH(k_finalexp, B, nslots, stream, (const uint32_t*)in,
+                     (uint32_t*)out, (const uint32_t*)consts,
+                     (const int32_t*)prog, (const int32_t*)sched, nsched, B);
 }
 #else
 extern "C" int drand_finalexp(const void* in, void* out, const void* consts,
-                              const void* xbits, int nxbits,
-                              const void* invbits, int ninv, int64_t B,
-                              void* stream) {
+                            const void* prog, int nslots, const void* sched,
+                            int nsched, int64_t B, void* stream) {
+  (void)nslots;
   (void)stream;
-  for (int64_t lane = 0; lane < B; lane++)
-    finalexp_lane((const uint32_t*)in, (uint32_t*)out, (const uint32_t*)consts,
-                  (const int32_t*)xbits, nxbits, (const int32_t*)invbits, ninv,
-                  B, lane);
-  return 0;
+  return group_host_run(
+      (const int32_t*)prog, (const uint32_t*)consts, B,
+      [&](const GroupProg& g, Fp* lane, const Fp* cs, int64_t idx) {
+        group_lane(g, lane, cs, (const uint32_t*)in, NIN, (uint32_t*)out,
+                   (const int32_t*)sched, nsched, B, idx);
+      });
 }
 #endif

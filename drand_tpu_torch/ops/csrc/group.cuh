@@ -1,0 +1,310 @@
+// A thread group per pairing lane: the interpreter of the Fp programs that
+// drand_tpu_torch/ops/fp12prog.py writes for K3 (miller.cu) and K4
+// (finalexp.cu).
+//
+// One warp (GROUP threads) owns one lane.  The lane's field values sit in
+// shared memory, one Fp per slot, and its work is a list of phases: in a
+// product phase every op is a Montgomery product (fp_mul), in a linear
+// phase every op is a +- b, halved mod p when asked.  The ops of a phase
+// are independent; thread t of the group runs ops t, t + GROUP, ... of it,
+// each in registers, and the group synchronises (__syncwarp) before the
+// next phase.  So the lane's dependent chain is one product per product
+// phase of at most GROUP ops, and no Fp12 value lives in local memory.
+// Every branch on the program (phase kind, loop bits) is uniform across
+// the group.
+//
+// group_phase(body) is the one place the group runs: on the card each
+// thread calls body(its index in the group) and the warp synchronises; on
+// the host (this header compiled as plain C++) the same body runs for
+// t = 0 .. GROUP-1 in turn.  A phase body touches only the lane's slots and
+// temporaries that die with it, and the program writer guarantees that no
+// op of a phase writes a slot that another op of the phase reads, so the
+// host loop computes what the card computes.
+//
+// Program table (int32; fp12prog.program):
+//   header [nslots, nfrags, nphases, nops, inv_in, inv_out]
+//   frags  2 per fragment: first phase, phase count
+//   phases 3 per phase: first op, op count, 1 = products / 0 = linear
+//   ops    4 per op: kind (0 product; 1 add, 2 sub, | 4 halve), d, a, b
+// Slot s < nslots is the lane's; s >= nslots is constant row s - nslots of
+// the bundle (row 0, the raw p, read as zero).
+
+#pragma once
+#include "field.cuh"
+
+namespace drand {
+
+constexpr int GROUP = 32;              // threads per lane: one warp
+constexpr int GROUP_MAX_LANES = 4;     // lanes (warps) per block at most
+constexpr int GROUP_SMEM = 48 * 1024;  // no opt-in to more shared memory
+constexpr int OP_ADD = 1, OP_SUB = 2, OP_HALVE = 4;
+
+struct GroupProg {
+  const int32_t* frags;
+  const int32_t* phases;
+  const int32_t* ops;
+  int nslots, inv_in, inv_out;
+};
+
+DI GroupProg group_prog(const int32_t* p) {
+  GroupProg g;
+  g.nslots = p[0];
+  g.inv_in = p[4];
+  g.inv_out = p[5];
+  g.frags = p + 6;
+  g.phases = g.frags + 2 * p[1];
+  g.ops = g.phases + 3 * p[2];
+  return g;
+}
+
+template <class Body>
+DI void group_phase(Body body) {
+#ifdef __CUDACC__
+  body((int)(threadIdx.x % GROUP));
+  __syncwarp();
+#else
+  for (int t = 0; t < GROUP; t++) body(t);
+#endif
+}
+
+DI void words_shr1(uint32_t* x) {
+  UNROLL for (int i = 0; i < 11; i++) x[i] = (x[i] >> 1) | (x[i + 1] << 31);
+  x[11] >>= 1;
+}
+
+// x / 2 mod p for canonical x
+DI void fp_half(Fp& x) {
+  const uint32_t odd = 0u - (x.v[0] & 1u);
+  uint64_t c = 0;
+  UNROLL for (int i = 0; i < 12; i++) {
+    c += (uint64_t)x.v[i] + (kP[i] & odd);
+    x.v[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  words_shr1(x.v);  // x + p < 2^382: no carry out
+}
+
+// r = (a + b) or (a - b), canonical, halved mod p with OP_HALVE.  Add and
+// sub share one instruction stream (a + (p - b) for sub), so a linear
+// phase mixing them does not diverge.
+DI void fp_lin(Fp& r, const Fp& a, const Fp& b, int kind) {
+  const bool sub = (kind & 3) == OP_SUB;
+  uint32_t nb[12], s[12];
+  uint64_t bw = 0;
+  UNROLL for (int i = 0; i < 12; i++) {
+    uint64_t t = (uint64_t)kP[i] - b.v[i] - bw;
+    nb[i] = (uint32_t)t;
+    bw = t >> 63;
+  }
+  uint64_t c = 0;
+  UNROLL for (int i = 0; i < 12; i++) {
+    c += (uint64_t)a.v[i] + (sub ? nb[i] : b.v[i]);
+    s[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  fp_reduce_once(r, s);  // a + b < 2p; a + (p - b) <= 2p - 1
+  if (kind & OP_HALVE) fp_half(r);
+}
+
+// Run fragment f of the program on one lane (slots `lane`, constants `cs`).
+DI void run_frag(const GroupProg& g, Fp* lane, const Fp* cs, int f) {
+  const int p0 = g.frags[2 * f], np = g.frags[2 * f + 1];
+  for (int ph = p0; ph < p0 + np; ph++) {
+    const int32_t* phase = g.phases + 3 * ph;
+    const int o0 = phase[0], n = phase[1];
+    const bool prod = phase[2] != 0;
+    group_phase([&](int t) {
+      for (int k = t; k < n; k += GROUP) {
+        const int32_t* op = g.ops + 4 * (o0 + k);
+        const int sa = op[2], sb = op[3];
+        const Fp a = sa < g.nslots ? lane[sa] : cs[sa - g.nslots];
+        const Fp b = sb < g.nslots ? lane[sb] : cs[sb - g.nslots];
+        Fp r;
+        if (prod) fp_mul(r, a, b);
+        else fp_lin(r, a, b, op[0]);
+        lane[op[1]] = r;
+      }
+    });
+  }
+}
+
+// The constant slots: bundle rows, row 0 (the raw p) as zero.
+DI void load_group_consts(Fp* cs, const uint32_t* consts, int t, int nt) {
+  for (int i = t; i < N_CONST * 12; i += nt)
+    cs[i / 12].v[i % 12] = i < 12 ? 0u : consts[i];
+}
+
+// Lane I/O of n Fp coordinates at slots 0 .. n-1 (structure of arrays).
+DI void load_lane(Fp* lane, const uint32_t* in, int n, int64_t B,
+                  int64_t idx) {
+  group_phase([&](int t) {
+    if (t < n) load_fp(lane[t], in, t, B, idx);
+  });
+}
+
+DI void store_lane(uint32_t* out, const Fp* lane, int n, int64_t B,
+                   int64_t idx) {
+  group_phase([&](int t) {
+    if (t < n) store_fp(out, t, lane[t], B, idx);
+  });
+}
+
+DNI void fp_inv(Fp& r, const Fp& a);
+
+// One lane: nin Fp coordinates in at slots 0.., the fragments of `sched`
+// in order (SCHED_INVERT: the Fp inverse of slot inv_in into inv_out, on
+// one thread), 12 Fp leaves out from slots 0..11.  The loops over the bits
+// of |x| are in the schedule (fp12prog.schedule), uniform across the group.
+constexpr int SCHED_INVERT = -1;
+
+DI void group_lane(const GroupProg& g, Fp* lane, const Fp* cs,
+                   const uint32_t* in, int nin, uint32_t* out,
+                   const int32_t* sched, int nsched, int64_t B,
+                   int64_t idx) {
+  load_lane(lane, in, nin, B, idx);
+  for (int s = 0; s < nsched; s++) {
+    const int f = sched[s];
+    if (f == SCHED_INVERT) {
+      group_phase([&](int t) {
+        if (t == 0) fp_inv(lane[g.inv_out], lane[g.inv_in]);
+      });
+    } else {
+      run_frag(g, lane, cs, f);
+    }
+  }
+  store_lane(out, lane, 12, B, idx);
+}
+
+// 1/a in Montgomery form, 0 -> 0: the binary extended gcd on the integer
+// x = a R mod p gives x^-1 = a^-1 R^-1, and one product by R^3 mod p turns
+// it into a^-1 R.  Variable time, which is fine for public verification
+// values; some 760 halvings and 380 subtractions of 12 words against the
+// ~570 products of the p-2 chain.
+CMEM uint32_t kR3[12] = {
+    0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu,
+    0x9a53352au, 0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u,
+    0x91755d4du, 0x0aa63460u};
+
+DI bool words_one(const uint32_t* x) {
+  uint32_t acc = x[0] ^ 1u;
+  UNROLL for (int i = 1; i < 12; i++) acc |= x[i];
+  return acc == 0;
+}
+
+// a >= b, then a -= b (12 words)
+DI bool words_sub_if_ge(uint32_t* a, const uint32_t* b) {
+  uint32_t d[12];
+  uint64_t bw = 0;
+  UNROLL for (int i = 0; i < 12; i++) {
+    uint64_t t = (uint64_t)a[i] - b[i] - bw;
+    d[i] = (uint32_t)t;
+    bw = t >> 63;
+  }
+  if (bw) return false;
+  UNROLL for (int i = 0; i < 12; i++) a[i] = d[i];
+  return true;
+}
+
+DNI void fp_inv(Fp& r, const Fp& a) {
+  if (fp_is_zero(a)) {
+    fp_zero(r);
+    return;
+  }
+  uint32_t u[12], v[12];
+  Fp x1, x2;
+  UNROLL for (int i = 0; i < 12; i++) {
+    u[i] = a.v[i];
+    v[i] = kP[i];
+    x1.v[i] = 0u;
+    x2.v[i] = 0u;
+  }
+  x1.v[0] = 1u;
+  while (!words_one(u) && !words_one(v)) {
+    while (!(u[0] & 1u)) {
+      words_shr1(u);
+      fp_half(x1);
+    }
+    while (!(v[0] & 1u)) {
+      words_shr1(v);
+      fp_half(x2);
+    }
+    if (words_sub_if_ge(u, v)) {
+      fp_sub(x1, x1, x2);
+    } else {
+      words_sub_if_ge(v, u);
+      fp_sub(x2, x2, x1);
+    }
+  }
+  Fp k;
+  fp_load_const(k, kR3);
+  fp_mul(r, words_one(u) ? x1 : x2, k);
+}
+
+}  // namespace drand
+
+// Launch of a group kernel: GROUP threads a lane, the lanes' slots and the
+// constant slots in dynamic shared memory, at most 48 KB a block (no
+// opt-in).  Lanes a block: of 1 .. GROUP_MAX_LANES, the count that keeps
+// the most lanes resident on an SM (228 KB of shared memory, 1 KB of it
+// reserved per block; 64 warps).  Returns cudaGetLastError() (1, invalid
+// value, if one lane's slots do not fit).
+constexpr int SM_SMEM = 228 * 1024, BLOCK_SMEM_RESERVED = 1024;
+
+static inline int group_smem_bytes(int lanes, int nslots) {
+  return (int)sizeof(drand::Fp) * (drand::N_CONST + lanes * nslots);
+}
+
+static inline int group_lanes_per_block(int nslots) {
+  int best = 0, best_res = 0;
+  for (int l = 1; l <= drand::GROUP_MAX_LANES; l++) {
+    const int smem = group_smem_bytes(l, nslots);
+    if (smem > drand::GROUP_SMEM) break;
+    int blocks = SM_SMEM / (smem + BLOCK_SMEM_RESERVED);
+    if (blocks * l > 64) blocks = 64 / l;
+    if (blocks * l >= best_res) {
+      best = l;
+      best_res = blocks * l;
+    }
+  }
+  return best;
+}
+
+#ifdef __CUDACC__
+#define DRAND_GROUP_LAUNCH(kernel, B, nslots, stream, ...)                   \
+  do {                                                                       \
+    const int lanes_ = group_lanes_per_block(nslots);                        \
+    if (lanes_ < 1) return 1;                                                \
+    if ((B) > 0) {                                                           \
+      const int64_t blocks_ = ((B) + lanes_ - 1) / lanes_;                   \
+      const size_t smem_ = (size_t)group_smem_bytes(lanes_, nslots);        \
+      kernel<<<(unsigned)blocks_, lanes_ * GROUP, smem_,                     \
+               (cudaStream_t)(stream)>>>(__VA_ARGS__);                       \
+    }                                                                        \
+    return (int)cudaGetLastError();                                          \
+  } while (0)
+
+// The block's constant slots at smem, this warp's lane slots after them;
+// nullptr for a warp past the last lane (once the block has loaded the
+// constants together).
+DI drand::Fp* group_enter(drand::Fp* smem, const uint32_t* consts, int nslots,
+                          int64_t B, int64_t* idx) {
+  drand::load_group_consts(smem, consts, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int w = threadIdx.x / drand::GROUP;
+  *idx = (int64_t)blockIdx.x * (blockDim.x / drand::GROUP) + w;
+  return *idx < B ? smem + drand::N_CONST + w * nslots : nullptr;
+}
+#else
+#include <vector>
+// The host rehearsal: the same lane code for every lane in turn.
+template <class LaneFn>
+static int group_host_run(const int32_t* prog, const uint32_t* consts,
+                          int64_t B, LaneFn fn) {
+  const drand::GroupProg g = drand::group_prog(prog);
+  drand::Fp cs[drand::N_CONST];
+  drand::load_group_consts(cs, consts, 0, 1);
+  std::vector<drand::Fp> lane(g.nslots);
+  for (int64_t idx = 0; idx < B; idx++) fn(g, lane.data(), cs, idx);
+  return 0;
+}
+#endif

@@ -1,0 +1,820 @@
+"""Fp programs of the group-per-lane Fp12 kernels K3 and K4.
+
+K3 (``csrc/miller.cu``) and K4 (``csrc/finalexp.cu``) run one warp,
+``GROUP`` = 32 threads, per pairing lane.  A lane's field values live in
+shared memory, one Fp (12 words) per slot, and its work is straight-line Fp
+code cut into phases: in a product phase every op is a Montgomery product,
+in a linear phase every op is a +- b, optionally halved mod p.  The ops of
+one phase are independent; the group's threads take them round robin and
+synchronise before the next phase (``csrc/group.cuh``).  A lane's chain of
+dependent products is then one product per product phase of at most GROUP
+ops, where the one-thread-a-lane kernels ran every product in a row.
+
+This module writes those programs.  The formulas are traced over symbolic
+Fp values: Karatsuba over the tower for dense products, Granger-Scott
+squaring in the cyclotomic subgroup (K4's pow_x chains: the easy part has
+already mapped every nonzero input into it), the sparse line product (K3),
+the tower inverse down to one Fp inverse (which K4 computes on one thread
+by the binary extended gcd), and the Miller steps with the field values of
+``kernels.dbl_step`` / ``kernels.add_step``.  Sums are kept as linear forms
+over computed values and built as balanced add trees only where a product
+or an output needs them.  Each fragment is then cut into phases (linear ops
+as soon as their operands exist, products batched) and given slots: the
+named slots carry the state the kernel's loops keep, temporaries share the
+rest, and no op of a phase writes a slot another op of that phase reads.
+
+Field values are unique, so these programs give the plain versions'
+results (``kernels.miller_loop_plain``, ``final_exponentiation_plain``)
+limb for limb.  What fixes a representative is kept: the Miller steps'
+line coefficients, the order of updates to f, and the hard part's chain.
+
+``program(kind)`` returns one int32 table per kernel and ``schedule(kind)``
+the list of fragments a lane runs (the loops over the bits of |x|), both
+passed with the launch:
+
+  header  [nslots, nfrags, nphases, nops, inv_in, inv_out]
+  frags   2 per fragment: first phase, phase count
+  phases  3 per phase: first op, op count, 1 for products / 0 for linear
+  ops     4 per op: kind (0 product; 1 add, 2 sub, | 4 halve), d, a, b
+
+Slots below nslots are the lane's; slot nslots + row is row ``row`` of the
+constant bundle (``kernels.CONST_NAMES``), row 0 read as zero.
+"""
+
+import heapq
+from functools import lru_cache
+
+import numpy as np
+
+from ..crypto.host import field as HF
+from ..crypto.host.params import P, X as BLS_X
+
+GROUP = 32                     # threads per pairing lane (one warp)
+PROD, ADD, SUB, HALVE = 0, 1, 2, 4
+XBITS = [int(c) for c in bin(-BLS_X)[3:]]   # |x| after the leading 1
+
+# constant bundle rows (kernels.CONST_NAMES) and their values (not Montgomery)
+ZERO_ROW, ONE_ROW, HALF_ROW, FROB_ROW = 0, 1, 2, {1: 6, 2: 18}
+CONST_VALUES = {ZERO_ROW: 0, ONE_ROW: 1, HALF_ROW: (P + 1) // 2}
+for _j in (1, 2):
+    for _i, _c in enumerate(HF.FROB[_j]):
+        CONST_VALUES[FROB_ROW[_j] + 2 * _i] = _c[0]
+        CONST_VALUES[FROB_ROW[_j] + 2 * _i + 1] = _c[1]
+
+_MUL_EST, _LIN_EST = 10, 1     # relative latencies for balancing add trees
+
+
+class _Node:
+    """A computed Fp value: an input slot, a constant row, or an op."""
+    __slots__ = ("id", "kind", "a", "b", "half", "loc", "est")
+
+    def __init__(self, nid, kind, a=None, b=None, half=False, loc=None,
+                 est=0):
+        self.id, self.kind, self.a, self.b = nid, kind, a, b
+        self.half, self.loc, self.est = half, loc, est
+
+
+class _F:
+    """A linear form sum(c * node), halved when `half`: a symbolic Fp."""
+    __slots__ = ("g", "terms", "half")
+
+    def __init__(self, g, terms, half=False):
+        self.g, self.terms, self.half = g, terms, half
+
+    def _lin(self, o, sign):
+        if isinstance(o, int) and o == 0:
+            return self
+        assert not (self.half or o.half), "halved forms are not summed"
+        t = dict(self.terms)
+        for n, c in o.terms.items():
+            v = t.get(n, 0) + sign * c
+            if v:
+                t[n] = v
+            else:
+                t.pop(n, None)
+        return _F(self.g, t)
+
+    def __add__(self, o):
+        return self._lin(o, 1)
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._lin(o, -1)
+
+    def __neg__(self):
+        assert not self.half
+        return _F(self.g, {n: -c for n, c in self.terms.items()})
+
+    def __mul__(self, o):
+        if isinstance(o, int):
+            assert not self.half
+            return _F(self.g, {n: c * o for n, c in self.terms.items()
+                               if c * o}) if o else _F(self.g, {})
+        return self.g.mul(self, o)
+
+    __rmul__ = __mul__
+
+    def halve(self):
+        assert not self.half
+        return _F(self.g, dict(self.terms), True)
+
+    def const_value(self):
+        """The value of a constant form (None if it depends on slots)."""
+        if self.half or any(n.kind != "const" for n in self.terms):
+            return None
+        return sum(c * CONST_VALUES[n.loc] for n, c in self.terms.items()) % P
+
+
+class _Frag:
+    """One fragment: its graph, then its phases and slots."""
+
+    def __init__(self):
+        self.nodes = []
+        self.memo = {}
+        self.inputs = {}          # slot -> node
+        self.consts = {}          # row -> node
+        self.outputs = []         # (slot, node)
+
+    def _new(self, kind, **kw):
+        n = _Node(len(self.nodes), kind, **kw)
+        self.nodes.append(n)
+        return n
+
+    def inp(self, slot):
+        if slot not in self.inputs:
+            self.inputs[slot] = self._new("in", loc=slot)
+        return _F(self, {self.inputs[slot]: 1})
+
+    def const(self, row):
+        if row not in self.consts:
+            self.consts[row] = self._new("const", loc=row)
+        return _F(self, {self.consts[row]: 1})
+
+    def zero(self):
+        return _F(self, {})
+
+    def _op(self, kind, a, b, half=False):
+        return self._new(kind, a=a, b=b, half=half,
+                         est=max(a.est, b.est) + _LIN_EST)
+
+    def _scaled(self, n, j):
+        """The node 2^j * n (doublings, shared)."""
+        if j == 0:
+            return n
+        key = ("dbl", n.id, j)
+        if key not in self.memo:
+            h = self._scaled(n, j - 1)
+            self.memo[key] = self._op("add", h, h)
+        return self.memo[key]
+
+    def node(self, f):
+        """Materialize a form: a balanced tree of adds and subs."""
+        if not f.terms:
+            self.const(ZERO_ROW)
+            return self.consts[ZERO_ROW]
+        if not f.half and len(f.terms) == 1:
+            (n, c), = f.terms.items()
+            if c == 1:
+                return n
+        key = (tuple(sorted((n.id, c) for n, c in f.terms.items())), f.half)
+        if key in self.memo:
+            return self.memo[key]
+        heap, seq = [], 0
+        for n, c in sorted(f.terms.items(), key=lambda nc: nc[0].id):
+            for j in range(abs(c).bit_length()):
+                if abs(c) >> j & 1:
+                    s = self._scaled(n, j)
+                    heap.append((s.est, seq, s, c > 0))
+                    seq += 1
+        heapq.heapify(heap)
+        fresh = set()
+        while len(heap) > 1:
+            _, _, x, px = heapq.heappop(heap)
+            _, _, y, py = heapq.heappop(heap)
+            if px and py:
+                r, pos = self._op("add", x, y), True
+            elif px:
+                r, pos = self._op("sub", x, y), True
+            elif py:
+                r, pos = self._op("sub", y, x), True
+            else:
+                r, pos = self._op("add", x, y), False
+            fresh.add(r.id)
+            heapq.heappush(heap, (r.est, seq, r, pos))
+            seq += 1
+        _, _, root, pos = heap[0]
+        zero = self.node(self.zero())
+        if not pos:
+            root = self._op("sub", zero, root, half=f.half)
+        elif f.half and root.id in fresh:
+            root.half = True
+        elif f.half:
+            root = self._op("add", root, zero, half=True)
+        self.memo[key] = root
+        return root
+
+    def mul(self, x, y):
+        for a, b in ((x, y), (y, x)):
+            v = a.const_value()
+            if v == 0:
+                return self.zero()
+            if v == 1:
+                return b
+        nx, ny = self.node(x), self.node(y)
+        key = ("mul",) + tuple(sorted((nx.id, ny.id)))
+        if key not in self.memo:
+            self.memo[key] = self._new("mul", a=nx, b=ny,
+                                       est=max(nx.est, ny.est) + _MUL_EST)
+        return _F(self, {self.memo[key]: 1})
+
+    def out(self, slot, f):
+        self.outputs.append((slot, self.node(f)))
+
+    # -- phases and slots ----------------------------------------------------
+
+    def compile(self, temp_base):
+        """-> (phases [(is_product, [(kind, d, a, b)])], temps used).  Slot
+        refs are ints (lane slots) or ("c", row) (constant rows)."""
+        live, stack = set(), [n for _, n in self.outputs]
+        while stack:
+            n = stack.pop()
+            if n.id in live:
+                continue
+            live.add(n.id)
+            if n.kind in ("mul", "add", "sub"):
+                stack += [n.a, n.b]
+        ops = [n for n in self.nodes if n.id in live
+               and n.kind in ("mul", "add", "sub")]
+        done = {n.id for n in self.nodes if n.kind in ("in", "const")}
+        phase_of, phases, remaining = {}, [], ops
+        while remaining:
+            ready = [n for n in remaining
+                     if n.a.id in done and n.b.id in done]
+            lin = [n for n in ready if n.kind != "mul"]
+            batch = lin or [n for n in ready if n.kind == "mul"]
+            assert batch, "cyclic fragment"
+            for n in batch:
+                phase_of[n.id] = len(phases)
+            phases.append((not lin, batch))
+            done |= {n.id for n in batch}
+            bid = {n.id for n in batch}
+            remaining = [n for n in remaining if n.id not in bid]
+        copy_phase = len(phases)
+
+        reads = {}                        # node id -> [(phase, reader id)]
+        for n in ops:
+            for c in (n.a, n.b):
+                reads.setdefault(c.id, []).append((phase_of[n.id], n.id))
+        placed, copies, slot_taken = {}, [], set()
+        for slot, n in self.outputs:
+            assert slot not in slot_taken, f"slot {slot} written twice"
+            slot_taken.add(slot)
+            if n.kind == "in" and n.loc == slot:
+                continue                  # unchanged
+            if n.kind in ("in", "const") or n.id in placed:
+                copies.append((slot, n))
+                reads.setdefault(n.id, []).append((copy_phase, None))
+            else:
+                placed[n.id] = slot
+        # an op placed in its output slot must not overwrite an input that
+        # another op still reads in that phase or later
+        for nid, slot in list(placed.items()):
+            src = self.inputs.get(slot)
+            if src is None:
+                continue
+            p = phase_of[nid]
+            if any(q > p or (q == p and r != nid)
+                   for q, r in reads.get(src.id, [])):
+                del placed[nid]
+                n = self.nodes[nid]
+                copies.append((slot, n))
+                reads.setdefault(nid, []).append((copy_phase, None))
+        written = set(placed.values()) | {s for s, _ in copies}
+        for slot, n in copies:
+            assert n.kind != "in" or n.loc not in written, \
+                f"output slot {slot} copies slot {n.loc}, which is rewritten"
+
+        last = {nid: max(q for q, _ in rs) for nid, rs in reads.items()}
+        loc = {}
+        for n in self.nodes:
+            if n.kind == "in":
+                loc[n.id] = n.loc
+            elif n.kind == "const":
+                loc[n.id] = ("c", n.loc)
+        loc.update(placed)
+        temps = []                        # last read phase of each temp slot
+
+        def own_slot(n, p):
+            """A temp operand that n alone reads last, in n's phase: n may
+            overwrite it (an op reads its operands before it writes)."""
+            for c in (n.a, n.b):
+                at = loc.get(c.id)
+                i = at - temp_base if isinstance(at, int) else -1
+                if (i >= 0 and c.id not in placed and last[c.id] == p
+                        and all(r == n.id for q, r in reads[c.id]
+                                if q == p)):
+                    return i
+            return None
+
+        for n in sorted(ops, key=lambda n: (phase_of[n.id], n.id)):
+            if n.id in placed:
+                continue
+            assert n.id in last, "an op nobody reads"
+            p = phase_of[n.id]
+            i = own_slot(n, p)
+            if i is None:
+                for i, busy in enumerate(temps):
+                    if busy < p:
+                        break
+                else:
+                    i = len(temps)
+                    temps.append(None)
+            temps[i] = last[n.id]
+            loc[n.id] = temp_base + i
+
+        code = {"mul": PROD, "add": ADD, "sub": SUB}
+        out = [(is_prod, [(code[n.kind] | (HALVE if n.half else 0),
+                           loc[n.id], loc[n.a.id], loc[n.b.id])
+                          for n in sorted(batch, key=lambda n: n.id)])
+               for is_prod, batch in phases]
+        if copies:
+            z = ("c", ZERO_ROW)
+            out.append((False, [(ADD, slot, loc[n.id], z)
+                                for slot, n in copies]))
+        _check_phases(out)
+        return out, len(temps)
+
+
+def _check_phases(phases):
+    """No op writes a slot that another op of its phase reads, and no two
+    ops of a phase write the same slot."""
+    for _, ops in phases:
+        writes = [d for _, d, _, _ in ops]
+        assert len(set(writes)) == len(writes), "two writes to one slot"
+        for i, (_, d, a, b) in enumerate(ops):
+            assert not isinstance(d, tuple), "write to a constant"
+            for j, (_, _, a2, b2) in enumerate(ops):
+                assert i == j or d not in (a2, b2), "read/write race"
+
+
+# ---------------------------------------------------------------------------
+# The tower over symbolic Fp (same layout as tower.py)
+# ---------------------------------------------------------------------------
+
+def _fp2_add(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+def _fp2_sub(a, b):
+    return (a[0] - b[0], a[1] - b[1])
+
+
+def _fp2_neg(a):
+    return (-a[0], -a[1])
+
+
+def _fp2_conj(a):
+    return (a[0], -a[1])
+
+
+def _fp2_xi(a):
+    """a * (1 + u)."""
+    return (a[0] - a[1], a[0] + a[1])
+
+
+def _fp2_mul(a, b):
+    if b[1].const_value() == 0:          # b in Fp: two products
+        return (a[0] * b[0], a[1] * b[0])
+    t0, t1 = a[0] * b[0], a[1] * b[1]
+    t2 = (a[0] + a[1]) * (b[0] + b[1])
+    return (t0 - t1, t2 - t0 - t1)
+
+
+def _fp2_sqr(a):
+    m = a[0] * a[1]
+    return ((a[0] + a[1]) * (a[0] - a[1]), 2 * m)
+
+
+def _fp2_mul_fp(a, k):
+    return (a[0] * k, a[1] * k)
+
+
+def _fp6_add(a, b):
+    return tuple(_fp2_add(x, y) for x, y in zip(a, b))
+
+
+def _fp6_sub(a, b):
+    return tuple(_fp2_sub(x, y) for x, y in zip(a, b))
+
+
+def _fp6_neg(a):
+    return tuple(_fp2_neg(x) for x in a)
+
+
+def _fp6_v(a):
+    """a * v."""
+    return (_fp2_xi(a[2]), a[0], a[1])
+
+
+def _fp6_mul(a, b=None):
+    """Karatsuba over Fp2 (6 Fp2 products); b None squares a."""
+    if b is None:
+        m = lambda x, _y: _fp2_sqr(x)
+        b = a
+    else:
+        m = _fp2_mul
+    t0, t1, t2 = m(a[0], b[0]), m(a[1], b[1]), m(a[2], b[2])
+    add = lambda x, y: _mat(x[0].g, _fp2_add(x, y))
+    s12 = m(add(a[1], a[2]), add(b[1], b[2]))
+    s01 = m(add(a[0], a[1]), add(b[0], b[1]))
+    s02 = m(add(a[0], a[2]), add(b[0], b[2]))
+    c0 = _fp2_add(t0, _fp2_xi(_fp2_sub(_fp2_sub(s12, t1), t2)))
+    c1 = _fp2_add(_fp2_sub(_fp2_sub(s01, t0), t1), _fp2_xi(t2))
+    c2 = _fp2_add(_fp2_sub(_fp2_sub(s02, t0), t2), t1)
+    return (c0, c1, c2)
+
+
+def _fp12_mul(a, b):
+    """Karatsuba over Fp6: 18 Fp2 products, 54 Fp products."""
+    g = a[0][0][0].g
+    t0, t1 = _fp6_mul(a[0], b[0]), _fp6_mul(a[1], b[1])
+    t2 = _fp6_mul(_mat(g, _fp6_add(a[0], a[1])),
+                  _mat(g, _fp6_add(b[0], b[1])))
+    return (_fp6_add(t0, _fp6_v(t1)), _fp6_sub(_fp6_sub(t2, t0), t1))
+
+
+def _fp12_sqr(a):
+    """Dense squaring: three Fp6 squarings, 36 Fp products."""
+    t0, t1 = _fp6_mul(a[0]), _fp6_mul(a[1])
+    t2 = _fp6_mul(_mat(a[0][0][0].g, _fp6_add(a[0], a[1])))
+    return (_fp6_add(t0, _fp6_v(t1)), _fp6_sub(_fp6_sub(t2, t0), t1))
+
+
+def _fp12_conj(a):
+    return (a[0], _fp6_neg(a[1]))
+
+
+def _fp4_sqr(a, b):
+    t0, t1 = _fp2_sqr(a), _fp2_sqr(b)
+    c1 = _fp2_sub(_fp2_sub(_fp2_sqr(_fp2_add(a, b)), t0), t1)
+    return _fp2_add(_fp2_xi(t1), t0), c1
+
+
+def _fp12_cyclo_sqr(f):
+    """Granger-Scott squaring in the cyclotomic subgroup: 9 Fp2 squarings,
+    18 Fp products.  Equal to the dense square there."""
+    (z0, z4, z3), (z2, z1, z5) = f
+    three = lambda t, z, s: tuple(3 * ti + s * 2 * zi for ti, zi in zip(t, z))
+    t0, t1 = _fp4_sqr(z0, z1)
+    n0, n1 = three(t0, z0, -1), three(t1, z1, 1)
+    t0, t1 = _fp4_sqr(z2, z3)
+    t2, t3 = _fp4_sqr(z4, z5)
+    n4, n5 = three(t0, z4, -1), three(t1, z5, 1)
+    n2, n3 = three(_fp2_xi(t3), z2, 1), three(t2, z3, -1)
+    return ((n0, n4, n3), (n2, n1, n5))
+
+
+def _frob_const(g, j, i):
+    r = FROB_ROW[j] + 2 * i
+    return (g.const(r), g.const(r + 1))
+
+
+def _fp12_frob(g, f, j):
+    """f^(p^j): coefficient i of w^i conjugated for odd j, times gamma_j,i."""
+    (c0, c2, c4), (c1, c3, c5) = f
+    out = [_fp2_mul(_fp2_conj(c) if j & 1 else c, _frob_const(g, j, i))
+           for i, c in enumerate((c0, c1, c2, c3, c4, c5))]
+    return ((out[0], out[2], out[4]), (out[1], out[3], out[5]))
+
+
+def _fp6_mul_01(x, A, B):
+    """x * (A + B v): 5 Fp2 products."""
+    g = A[0].g
+    t0, t1 = _fp2_mul(x[0], A), _fp2_mul(x[1], B)
+    c1 = _fp2_sub(_fp2_sub(_fp2_mul(_mat(g, _fp2_add(x[0], x[1])),
+                                    _mat(g, _fp2_add(A, B))), t0), t1)
+    return (_fp2_add(t0, _fp2_xi(_fp2_mul(x[2], B))), c1,
+            _fp2_add(t1, _fp2_mul(x[2], A)))
+
+
+def _fp6_mul_1(x, C):
+    """x * (C v): 3 Fp2 products."""
+    return (_fp2_xi(_fp2_mul(x[2], C)), _fp2_mul(x[0], C), _fp2_mul(x[1], C))
+
+
+def _fp12_mul_line(f, A, B, C):
+    """f * ((A, B, 0), (0, C, 0)): the sparse line product, 13 Fp2
+    products (39 Fp) in place of a dense product's 54."""
+    g = A[0].g
+    t0, t1 = _fp6_mul_01(f[0], A, B), _fp6_mul_1(f[1], C)
+    t2 = _fp6_mul_01(_mat(g, _fp6_add(f[0], f[1])), A,
+                     _mat(g, _fp2_add(B, C)))
+    return (_fp6_add(t0, _fp6_v(t1)), _fp6_sub(_fp6_sub(t2, t0), t1))
+
+
+# ---------------------------------------------------------------------------
+# Layouts and fragments
+# ---------------------------------------------------------------------------
+
+def _load(g, base, n):
+    return [g.inp(base + i) for i in range(n)]
+
+
+def _fp12_in(g, base):
+    v = _load(g, base, 12)
+    fp2 = lambda k: (v[2 * k], v[2 * k + 1])
+    return ((fp2(0), fp2(1), fp2(2)), (fp2(3), fp2(4), fp2(5)))
+
+
+def _fp12_leaves(f):
+    return [x for c6 in f for c2 in c6 for x in c2]
+
+
+def _fp12_out(g, base, f):
+    for i, x in enumerate(_fp12_leaves(f)):
+        g.out(base + i, x)
+
+
+def _mat(g, f):
+    """Materialize every leaf of a nested tuple (a new named value)."""
+    if isinstance(f, tuple):
+        return tuple(_mat(g, x) for x in f)
+    return _F(g, {g.node(f): 1})
+
+
+# K3: P, Q (affine), R (projective G2), f.  Input and output at slot 0.
+ML = dict(PX=0, PY=1, QX=2, QY=4, RX=6, RY=8, RZ=10, F=12, N=24)
+ML_INIT, ML_DBL, ML_ADD, ML_FIN = range(4)
+
+
+def _ml_state(g):
+    fp2 = lambda s: (g.inp(s), g.inp(s + 1))
+    R = (fp2(ML["RX"]), fp2(ML["RY"]), fp2(ML["RZ"]))
+    return R, _fp12_in(g, ML["F"])
+
+
+def _ml_out(g, R, f):
+    for name, c in zip(("RX", "RY", "RZ"), R):
+        g.out(ML[name], c[0])
+        g.out(ML[name] + 1, c[1])
+    _fp12_out(g, ML["F"], f)
+
+
+def _line(g, f, ell):
+    px, py = g.inp(ML["PX"]), g.inp(ML["PY"])
+    return _fp12_mul_line(f, ell[0], _fp2_mul_fp(ell[1], px),
+                          _fp2_mul_fp(ell[2], py))
+
+
+def _ml_init(g):
+    one, z = g.const(ONE_ROW), g.zero()
+    f = (((one, z), (z, z), (z, z)), ((z, z), (z, z), (z, z)))
+    q = [g.inp(ML["QX"] + i) for i in range(4)]
+    R = ((q[0], q[1]), (q[2], q[3]), (one, z))
+    _ml_out(g, R, f)
+
+
+def _ml_dbl(g):
+    """f <- f^2 * line; R <- 2R (kernels.dbl_step's field values)."""
+    (Rx, Ry, Rz), f = _ml_state(g)
+    f = _mat(g, _fp12_sqr(f))
+    t0, t1 = _fp2_sqr(Ry), _fp2_sqr(Rz)
+    u, v, m = _fp2_sqr(_fp2_add(Ry, Rz)), _fp2_sqr(Rx), _fp2_mul(Rx, Ry)
+    t2 = _mat(g, tuple(3 * 4 * c for c in _fp2_xi(t1)))   # 3 (t1 * b2)
+    t3 = tuple(3 * c for c in t2)
+    t4 = _fp2_sub(_fp2_sub(u, t1), t0)
+    ell = (_fp2_sub(t2, t0), tuple(3 * c for c in v), _fp2_neg(t4))
+    hh = _mat(g, tuple(c.halve() for c in _fp2_add(t0, t3)))
+    gg = _mat(g, tuple(c.halve() for c in _fp2_sub(t0, t3)))
+    R = (_fp2_mul(gg, m), _fp2_sub(_fp2_sqr(hh), tuple(3 * c for c in
+                                                        _fp2_sqr(t2))),
+         _fp2_mul(t0, t4))
+    _ml_out(g, R, _line(g, f, ell))
+
+
+def _ml_add(g):
+    """f <- f * line; R <- R + Q (kernels.add_step's field values)."""
+    (Rx, Ry, Rz), f = _ml_state(g)
+    Qx = (g.inp(ML["QX"]), g.inp(ML["QX"] + 1))
+    Qy = (g.inp(ML["QY"]), g.inp(ML["QY"] + 1))
+    t0 = _fp2_sub(Ry, _fp2_mul(Qy, Rz))
+    t1 = _fp2_sub(Rx, _fp2_mul(Qx, Rz))
+    ell = (_fp2_sub(_fp2_mul(t0, Qx), _fp2_mul(t1, Qy)), _fp2_neg(t0), t1)
+    t2 = _fp2_sqr(t1)
+    t3, t4 = _fp2_mul(t2, t1), _fp2_mul(t2, Rx)
+    t5 = _fp2_add(_fp2_sub(t3, _fp2_add(t4, t4)), _fp2_mul(_fp2_sqr(t0), Rz))
+    R = (_fp2_mul(t1, t5),
+         _fp2_sub(_fp2_mul(_fp2_sub(t4, t5), t0), _fp2_mul(t3, Ry)),
+         _fp2_mul(Rz, t3))
+    _ml_out(g, R, _line(g, f, ell))
+
+
+def _ml_fin(g):
+    _, f = _ml_state(g)
+    _fp12_out(g, 0, _fp12_conj(f))
+
+
+# K4: input and output at slot 0; F the easy part's result, G the base and
+# ACC the accumulator of a pow_x chain, E1 / E2 the hard part's e1 / e2; C,
+# TT, NRM, NINV the tower inverse's pieces around the Fp inverse (in E1's
+# slots, which the easy part does not use).
+FE = dict(IN=0, F=12, G=24, ACC=36, E1=48, E2=60, C=48, TT=54, NRM=56,
+          NINV=57, N=72)
+(FE_PRE, FE_POST, FE_CYC, FE_MULG, FE_H1, FE_H2, FE_H3, FE_H4, FE_H5A,
+ FE_H5B, FE_H5C, FE_H5D) = range(12)
+
+
+def _fe_pre(g):
+    """The Fp12 inverse down to one Fp norm."""
+    a0, a1 = _fp12_in(g, FE["IN"])
+    t = _mat(g, _fp6_sub(_fp6_mul(a0), _fp6_v(_fp6_mul(a1))))
+    c0 = _mat(g, _fp2_sub(_fp2_sqr(t[0]), _fp2_xi(_fp2_mul(t[1], t[2]))))
+    c1 = _mat(g, _fp2_sub(_fp2_xi(_fp2_sqr(t[2])), _fp2_mul(t[0], t[1])))
+    c2 = _mat(g, _fp2_sub(_fp2_sqr(t[1]), _fp2_mul(t[0], t[2])))
+    tt = _mat(g, _fp2_add(_fp2_xi(_fp2_add(_fp2_mul(t[1], c2),
+                                           _fp2_mul(t[2], c1))),
+                          _fp2_mul(t[0], c0)))
+    for i, x in enumerate([y for c in (c0, c1, c2) for y in c]):
+        g.out(FE["C"] + i, x)
+    g.out(FE["TT"], tt[0])
+    g.out(FE["TT"] + 1, tt[1])
+    g.out(FE["NRM"], tt[0] * tt[0] + tt[1] * tt[1])
+
+
+def _fe_set_base(g, f):
+    """f -> G (the next chain's base) and ACC (its accumulator)."""
+    _fp12_out(g, FE["G"], f)
+    _fp12_out(g, FE["ACC"], f)
+
+
+def _fe_post(g):
+    """Back up the tower: u = 1/in; then the easy part f = conj(in) u,
+    f = frob2(f) f."""
+    a0, a1 = _fp12_in(g, FE["IN"])
+    ld = lambda s, n: _load(g, s, n)
+    c = ld(FE["C"], 6)
+    tt = ld(FE["TT"], 2)
+    ninv = g.inp(FE["NINV"])
+    ti = (tt[0] * ninv, -(tt[1] * ninv))
+    ti = _mat(g, ti)
+    tinv = _mat(g, tuple(_fp2_mul((c[2 * k], c[2 * k + 1]), ti)
+                         for k in range(3)))
+    u = _mat(g, (_fp6_mul(a0, tinv), _fp6_neg(_fp6_mul(a1, tinv))))
+    f = _mat(g, _fp12_mul(_fp12_conj((a0, a1)), u))
+    f = _fp12_mul(_mat(g, _fp12_frob(g, f, 2)), f)
+    _fp12_out(g, FE["F"], f)
+    _fe_set_base(g, f)
+
+
+def _fe_cyc(g):
+    _fp12_out(g, FE["ACC"], _fp12_cyclo_sqr(_fp12_in(g, FE["ACC"])))
+
+
+def _fe_mulg(g):
+    _fp12_out(g, FE["ACC"], _fp12_mul(_fp12_in(g, FE["ACC"]),
+                                      _fp12_in(g, FE["G"])))
+
+
+def _fe_t(g):
+    """pow_x's result: conj of the accumulator."""
+    return _fp12_conj(_fp12_in(g, FE["ACC"]))
+
+
+def _fe_h1(g):
+    e1 = _fp12_mul(_fe_t(g), _fp12_conj(_fp12_in(g, FE["F"])))
+    _fp12_out(g, FE["E1"], e1)
+    _fe_set_base(g, e1)
+
+
+def _fe_h2(g):
+    e1 = _fp12_mul(_fe_t(g), _fp12_conj(_fp12_in(g, FE["E1"])))
+    _fp12_out(g, FE["E1"], e1)
+    _fe_set_base(g, e1)
+
+
+def _fe_h3(g):
+    e2 = _fp12_mul(_fe_t(g), _mat(g, _fp12_frob(g, _fp12_in(g, FE["E1"]),
+                                                 1)))
+    _fp12_out(g, FE["E2"], e2)
+    _fe_set_base(g, e2)
+
+
+def _fe_h4(g):
+    _fe_set_base(g, _fe_t(g))
+
+
+def _fe_h5a(g):
+    """The last chain's end, cut in four fragments to bound the temps:
+    G = conj(acc) frob2(e2); E1 = G conj(e2); E2 = f^2 f; out = E1 E2."""
+    e2 = _fp12_in(g, FE["E2"])
+    _fp12_out(g, FE["G"], _fp12_mul(_fe_t(g), _mat(g, _fp12_frob(g, e2, 2))))
+
+
+def _fe_h5b(g):
+    _fp12_out(g, FE["E1"], _fp12_mul(_fp12_in(g, FE["G"]),
+                                     _fp12_conj(_fp12_in(g, FE["E2"]))))
+
+
+def _fe_h5c(g):
+    f = _fp12_in(g, FE["F"])
+    _fp12_out(g, FE["E2"], _fp12_mul(_mat(g, _fp12_cyclo_sqr(f)), f))
+
+
+def _fe_h5d(g):
+    _fp12_out(g, 0, _fp12_mul(_fp12_in(g, FE["E1"]), _fp12_in(g, FE["E2"])))
+
+
+KINDS = {
+    "miller": (ML["N"], [_ml_init, _ml_dbl, _ml_add, _ml_fin], (0, 0)),
+    "finalexp": (FE["N"], [_fe_pre, _fe_post, _fe_cyc, _fe_mulg, _fe_h1,
+                           _fe_h2, _fe_h3, _fe_h4, _fe_h5a, _fe_h5b, _fe_h5c,
+                           _fe_h5d],
+                 (FE["NRM"], FE["NINV"])),
+}
+
+
+@lru_cache(maxsize=None)
+def compiled(kind):
+    """-> (fragments [phases], nslots): each phase (is_product, ops) with
+    constant refs resolved to slot numbers."""
+    named, fns, _ = KINDS[kind]
+    frags, ntemp = [], 0
+    for fn in fns:
+        g = _Frag()
+        fn(g)
+        phases, nt = g.compile(named)
+        frags.append(phases)
+        ntemp = max(ntemp, nt)
+    nslots = named + ntemp
+    res = lambda s: nslots + s[1] if isinstance(s, tuple) else s
+    frags = [[(p, [(k, res(d), res(a), res(b)) for k, d, a, b in ops])
+              for p, ops in ph] for ph in frags]
+    return frags, nslots
+
+
+@lru_cache(maxsize=None)
+def program(kind):
+    """The int32 table the kernel reads (layout in the module docstring)."""
+    frags, nslots = compiled(kind)
+    inv_in, inv_out = KINDS[kind][2]
+    ftab, ptab, otab = [], [], []
+    for ph in frags:
+        ftab += [len(ptab) // 3, len(ph)]
+        for is_prod, ops in ph:
+            ptab += [len(otab) // 4, len(ops), int(is_prod)]
+            for op in ops:
+                otab += list(op)
+    head = [nslots, len(frags), len(ptab) // 3, len(otab) // 4, inv_in,
+            inv_out]
+    return np.array(head + ftab + ptab + otab, dtype=np.int32)
+
+
+def frag_stats(kind):
+    """Per fragment: products, linear ops, product phases, linear phases,
+    and the products on one lane's critical path (ceil(n / GROUP) per
+    product phase)."""
+    out = []
+    for ph in compiled(kind)[0]:
+        prods = [len(ops) for p, ops in ph if p]
+        lins = [len(ops) for p, ops in ph if not p]
+        out.append({"products": sum(prods), "linear_ops": sum(lins),
+                    "product_phases": len(prods), "linear_phases": len(lins),
+                    "critical_products": sum(-(-n // GROUP) for n in prods),
+                    "critical_linear": sum(-(-n // GROUP) for n in lins)})
+    return out
+
+
+INVERT = -1       # schedule entry: K4's Fp inverse, slot inv_in -> inv_out
+
+
+def schedule(kind, xbits=None):
+    """The fragments one lane runs, in order, for loop bits xbits (|x|
+    after its leading one): the kernel walks this list, so the loops over
+    the bits of |x| live here and not in the kernels."""
+    xbits = XBITS if xbits is None else xbits
+    loop = lambda step, add: [f for b in xbits
+                              for f in ((step, add) if b else (step,))]
+    if kind == "miller":
+        return [ML_INIT] + loop(ML_DBL, ML_ADD) + [ML_FIN]
+    out = [FE_PRE, INVERT, FE_POST]
+    for end in (FE_H1, FE_H2, FE_H3, FE_H4, FE_H5A):   # the five pow_x
+        out += loop(FE_CYC, FE_MULG) + [end]
+    return out + [FE_H5B, FE_H5C, FE_H5D]
+
+
+def lane_counts(kind, xbits=None):
+    """One lane's totals over its schedule: products (code), linear ops,
+    and the dependent products and linear steps of its critical path.
+    K4's Fp inverse (binary extended gcd on one thread, then one product by
+    R^3) counts as one product."""
+    st = frag_stats(kind)
+    tot = dict.fromkeys(st[0], 0)
+    for f in schedule(kind, xbits):
+        if f == INVERT:
+            tot["products"] += 1
+            tot["critical_products"] += 1
+            continue
+        for k in tot:
+            tot[k] += st[f][k]
+    return tot

@@ -10,6 +10,8 @@ recovery, both signature groups) has a hand-written CUDA C++ kernel
                                                            G1 and G2)
   K3 miller_loop       <- pallas_field._miller_call       (csrc/miller.cu)
   K4 final_exponentiation <- pallas_field._finalexp_call  (csrc/finalexp.cu)
+     (K3 and K4 run a warp per pairing lane over shared-memory Fp programs
+      that fp12prog.py writes and passes with the launch; csrc/group.cuh)
   K5 pow_fixed_fp2     <- pallas_field._pow2_call         (csrc/pow2.cu)
   K6 scalar_mul_bits   <- pallas_field._ladder_var_call   (csrc/ladder_var.cu,
                                                            G1 and G2)
@@ -48,10 +50,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import fp12prog as FP
 from . import limbs as L
 from . import tower as T
 from .curve import G1, G2, _leaf, _tmap
-from ..crypto.host.params import P, B2, X as BLS_X
+from ..crypto.host.params import P, B2
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -69,7 +72,7 @@ SHAPES = collections.Counter()
 
 TILE = 256          # lanes one K7 block reduces (pallas_field.TILE)
 
-XLOOP_BITS = [int(c) for c in bin(-BLS_X)[3:]]     # |x| after the leading 1
+XLOOP_BITS = FP.XBITS                               # |x| after the leading 1
 INV_EXP = P - 2
 
 # The constant bundle the pairing kernels read, row order of the JAX
@@ -176,7 +179,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.drand_pow.argtypes = [vp, vp, vp, i32, i64, vp]
     lib.drand_ladder_g1.argtypes = [vp, vp, vp, i32, i64, vp]
-    lib.drand_miller.argtypes = [vp, vp, vp, vp, i32, i64, vp]
+    lib.drand_miller.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
     lib.drand_finalexp.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
     lib.drand_sum_g1.argtypes = [vp, vp, i64, vp]
     lib.drand_glv_g1.argtypes = [vp, vp, vp, i32, i64, vp]
@@ -186,11 +189,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.drand_glv_g2.argtypes = [vp, vp, vp, i32, i64, vp]
     lib.drand_ladder_var_g1.argtypes = [vp, vp, vp, i32, i64, vp]
     lib.drand_ladder_var_g2.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_group_layout.argtypes = [i32, vp]
     for fn in (lib.drand_pow, lib.drand_ladder_g1, lib.drand_miller,
                lib.drand_finalexp, lib.drand_sum_g1, lib.drand_glv_g1,
                lib.drand_pow2, lib.drand_ladder_g2, lib.drand_sum_g2,
                lib.drand_glv_g2, lib.drand_ladder_var_g1,
-               lib.drand_ladder_var_g2):
+               lib.drand_ladder_var_g2, lib.drand_group_layout):
         fn.restype = ctypes.c_int
     return lib
 
@@ -263,6 +267,38 @@ def const_rows():
 @lru_cache(maxsize=None)
 def const_bundle(device: str) -> torch.Tensor:
     return to_words([const_rows().to(device)])[0].T.contiguous()  # (30, 12)
+
+
+@lru_cache(maxsize=None)
+def program_tensor(kind: str, device: str) -> torch.Tensor:
+    """fp12prog's int32 program table for K3 ("miller") or K4
+    ("finalexp") on `device`."""
+    return torch.from_numpy(FP.program(kind)).to(device)
+
+
+@lru_cache(maxsize=None)
+def schedule_tensor(kind: str, xbits: tuple, device: str) -> torch.Tensor:
+    """The fragments a K3 / K4 lane runs for loop bits xbits."""
+    return torch.tensor(FP.schedule(kind, list(xbits)), dtype=torch.int32,
+                        device=device)
+
+
+def _group_launch(fn, kind, x, out, dev, name):
+    """Launch K3 or K4: words in and out, the constant bundle, the program
+    and its slot count, the schedule for the loop bits of |x|."""
+    sched = schedule_tensor(kind, tuple(XLOOP_BITS), dev)
+    _check(fn(x.data_ptr(), out.data_ptr(), const_bundle(dev).data_ptr(),
+              program_tensor(kind, dev).data_ptr(), FP.compiled(kind)[1],
+              sched.data_ptr(), sched.numel(), x.shape[-1],
+              _stream(x.device)), name)
+
+
+def group_layout(kind):
+    """(lanes a block, dynamic shared-memory bytes a block) of K3's or K4's
+    launch, as csrc/group.cuh computes them for the program's slots."""
+    out = (ctypes.c_int32 * 2)()
+    _lib().drand_group_layout(FP.compiled(kind)[1], out)
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------
@@ -470,12 +506,8 @@ def miller_loop(px, py, q2):
     x = to_words([c.expand(shape + (L.NLIMB,)) for c in ins])
     n = x.shape[-1]
     out = torch.empty((12, 12, n), dtype=torch.int32, device=px.device)
-    dev = str(px.device)
-    xbits = bits_tensor(tuple(XLOOP_BITS), dev)
-    _check(_lib().drand_miller(x.data_ptr(), out.data_ptr(),
-                               const_bundle(dev).data_ptr(), xbits.data_ptr(),
-                               xbits.numel(), n, _stream(px.device)),
-           "miller_loop")
+    _group_launch(_lib().drand_miller, "miller", x, out, str(px.device),
+                  "miller_loop")
     _count("miller_loop", None, n)
     return T.fp12_pack(from_words(out, shape))
 
@@ -517,15 +549,8 @@ def final_exponentiation(f):
     x = to_words([c.expand(shape + (L.NLIMB,)) for c in leaves])
     n = x.shape[-1]
     out = torch.empty_like(x)
-    dev = str(leaves[0].device)
-    xbits = bits_tensor(tuple(XLOOP_BITS), dev)
-    invbits = bits_tensor(tuple(L.exp_bits(INV_EXP)), dev)
-    _check(_lib().drand_finalexp(x.data_ptr(), out.data_ptr(),
-                                 const_bundle(dev).data_ptr(),
-                                 xbits.data_ptr(), xbits.numel(),
-                                 invbits.data_ptr(), invbits.numel(), n,
-                                 _stream(leaves[0].device)),
-           "final_exponentiation")
+    _group_launch(_lib().drand_finalexp, "finalexp", x, out,
+                  str(leaves[0].device), "final_exponentiation")
     _count("final_exponentiation", None, n)
     return T.fp12_pack(from_words(out, shape))
 

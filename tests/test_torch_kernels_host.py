@@ -24,6 +24,7 @@ from drand_tpu_torch.crypto.host.curve import G1 as HG1, G2 as HG2
 from drand_tpu_torch.crypto.host import field as HF
 from drand_tpu_torch.crypto.host.params import P, R, X
 from drand_tpu_torch.ops import curve as DC
+from drand_tpu_torch.ops import fp12prog as FP
 from drand_tpu_torch.ops import kernels as K
 from drand_tpu_torch.ops import limbs as L
 from drand_tpu_torch.ops import tower as T
@@ -124,6 +125,80 @@ def test_final_exponentiation_kernel_matches_plain(kernel_path, fp12_inputs):
     assert kernel_path["final_exponentiation"] == 1
     _same(T.fp12_leaves(got),
           T.fp12_leaves(K.final_exponentiation_plain(f)))
+
+
+def _fp12_lanes(kinds):
+    """Fp12 lanes: "zero", "one" or "random" each."""
+    def leaf(kind, i):
+        if kind == "random":
+            return RNG.randrange(P)
+        return int(kind == "one" and i == 0)
+    return T.fp12_pack([L.encode_mont([leaf(k, i) for k in kinds])
+                        for i in range(12)])
+
+
+SHORT_BITS = [1, 0, 1, 1]           # a short |x|: each chain reaches its adds
+
+
+@pytest.mark.parametrize("kinds", [["one"], ["zero", "random"],
+                                   ["random", "zero", "one", "random",
+                                    "random"]],
+                         ids=["1 lane", "2 lanes", "5 lanes"])
+def test_final_exponentiation_kernel_edge_lanes(kernel_path, monkeypatch,
+                                                kinds):
+    """Zero and one through K4 beside random lanes (outside the cyclotomic
+    subgroup until the easy part maps them in), at 1, 2 and 5 lanes (5 is
+    no multiple of the card's 3 lanes a block), over a short |x| so that
+    the plain chain stays cheap; the full |x| is the test above."""
+    monkeypatch.setattr(K, "XLOOP_BITS", SHORT_BITS)
+    f = _fp12_lanes(kinds)
+    got = K.final_exponentiation(f)
+    assert K.SHAPES == {("final_exponentiation", None, len(kinds)): 1}
+    _same(T.fp12_leaves(got), T.fp12_leaves(K.final_exponentiation_plain(f)))
+    vals = [L.decode_mont(c) for c in T.fp12_leaves(got)]
+    for lane, kind in enumerate(kinds):
+        want = {"zero": [0] * 12, "one": [1] + [0] * 11}.get(kind)
+        if want is not None:
+            assert [v[lane] for v in vals] == want
+
+
+def test_final_exponentiation_kernel_zero_one_full_chain(kernel_path):
+    f = _fp12_lanes(["zero", "one", "random"])
+    _same(T.fp12_leaves(K.final_exponentiation(f)),
+          T.fp12_leaves(K.final_exponentiation_plain(f)))
+
+
+def _miller_inputs(n):
+    px, py = _rand_fp(n), _rand_fp(n)
+    return px, py, ((_rand_fp(n), _rand_fp(n)), (_rand_fp(n), _rand_fp(n)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7])
+def test_miller_kernel_add_steps(kernel_path, monkeypatch, n):
+    """1, 2 and 7 pairs (7: no multiple of the card's 4 lanes a block)
+    over short loops: with add steps (the first bit, the last, two in a
+    row) the kernel equals the plain loop, and without them the result
+    differs, so the add-line path ran and counted."""
+    ins = _miller_inputs(n)
+    outs = {}
+    for bits in ([0, 0, 0, 0], [1, 0, 1, 1]):
+        monkeypatch.setattr(K, "XLOOP_BITS", bits)
+        got = K.miller_loop(*ins)
+        _same(T.fp12_leaves(got), T.fp12_leaves(K.miller_loop_plain(*ins)))
+        outs[sum(bits)] = T.fp12_leaves(got)
+    assert K.SHAPES == {("miller_loop", None, n): 2}
+    assert all(not torch.equal(a, b) for a, b in zip(outs[0], outs[3]))
+
+
+@pytest.mark.parametrize("kind,tail", [("miller", 7), ("finalexp", 5)])
+def test_group_layout(kernel_path, kind, tail):
+    """The layout csrc/group.cuh gives a K3 / K4 launch: at least one lane
+    a block, the lanes' slots and the constants under 48 KB (no opt-in),
+    and the tail widths the tests above run are no multiple of it."""
+    lanes, smem = K.group_layout(kind)
+    slots = FP.compiled(kind)[1]
+    assert lanes >= 1 and tail % lanes
+    assert lanes * slots * 48 < smem <= 48 * 1024
 
 
 def _sum_input(n):

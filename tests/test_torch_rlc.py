@@ -87,10 +87,11 @@ def test_rlc_verdict_masks_lanes_beyond_n(other_round_batch, n, want):
 
 
 def test_rlc_keys_resample_equal_halves(monkeypatch):
-    draws = iter([b"\x07" * 16, b"\x01" * 8 + b"\x02" * 8])
+    good = bytes(range(1, 17))                  # four distinct words
+    draws = iter([b"\x07" * 16, good])
     monkeypatch.setattr(B.secrets, "token_bytes", lambda k: next(draws))
-    assert B._rlc_keys() == (int.from_bytes(b"\x01" * 8, "little"),
-                             int.from_bytes(b"\x02" * 8, "little"))
+    assert B._rlc_keys() == (int.from_bytes(good[:8], "little"),
+                             int.from_bytes(good[8:], "little"))
     monkeypatch.undo()
     a, b = B._rlc_keys(), B._rlc_keys()          # fresh entropy per pass
     assert a != b and a[0] != a[1]
