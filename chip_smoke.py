@@ -40,18 +40,21 @@ package's bench config 3), for ``bls-unchained-on-g1`` (``g1_*``) and
 Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
 timed; K3 and K4 (a warp a pairing lane) also at tail widths with a zero
-and a one lane, with each shape's dependent chain (ops/fp12prog.py), and
-their narrow launches split into per-step latencies by rerunning them
-with other loop bits.  Each phase prints one JSON line; the line before the
-last is the per-kernel table ({"kernels": [...]}), preceded by the card's
-name and power limit; the last is {"ok": true, "device": ...}.  Any failure
-exits non-zero before the last line.  Without a CUDA device, or without the
-rest of the repository beside it, it exits non-zero and prints no result.
+and a one lane, K6 (a thread group a ladder lane) at 16 bits over 5 lanes
+on both curves, each group kernel's shapes with their dependent chain
+(ops/fp12prog.py), and the narrow K3 / K4 launches split into per-step
+latencies by rerunning them with other loop bits.  Each phase prints one
+JSON line; the line before the last is the per-kernel table ({"kernels":
+[...]}), preceded by the card's name and power limit; the last is {"ok":
+true, "device": ...}.  Any failure exits non-zero before the last line.
+Without a CUDA device, or without the rest of the repository beside it, it
+exits non-zero and prints no result.
 
 Never imports jax or drand_tpu: only the port.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import random
@@ -118,6 +121,11 @@ def say(line):
 
 def emit(obj):
     say(json.dumps(obj))
+
+
+def digest(sigs):
+    """sha256 of the signatures in order: equal runs sign equal bytes."""
+    return hashlib.sha256(b"".join(sigs)).hexdigest()
 
 
 def fail(msg):
@@ -239,9 +247,11 @@ def need_miller(xbits):
 
 
 def code_group(counts):
-    """K3 / K4 (csrc/miller.cu, finalexp.cu): what fp12prog's program does
-    for one lane (fp12prog.lane_counts), every product at 588; its linear
-    ops, and K4's binary-gcd Fp inverse, do no multiply-adds."""
+    """K3 / K4 / K6 (csrc/miller.cu, finalexp.cu, ladder_var.cu): what
+    fp12prog's program does for one lane (fp12prog.lane_counts), every
+    product at 588; its linear and flag ops, and K4's binary-gcd Fp
+    inverse, do no multiply-adds.  K6 runs every step's products whatever
+    the bit."""
     return _imad(counts["products"])
 
 
@@ -370,11 +380,6 @@ def need_ladder_var(bits, dbl, add):
     dbls = (nbits - 1 - first).sum().item()
     adds = (ones - 1).clamp(min=0).sum().item()
     return dbls * dbl + adds * add
-
-
-def code_ladder_var(bits, dbl, add):
-    # every step a double and a complete add (selected or not)
-    return bits.numel() * (dbl + add)
 
 
 def ptxas_summary(log):
@@ -832,7 +837,9 @@ def main():
         emit({"phase": f"{tag}_sign", "scheme": sid, "rounds": nrp,
               "calls": THRESHOLD + 1, "wall_s": wall,
               "signatures_per_s": (THRESHOLD + 1) * nrp / wall,
-              "host_checked_rounds": sample, "launches": launches,
+              "host_checked_rounds": sample,
+              "sha256": digest([g for p_ in parts for g in p_] + full),
+              "launches": launches,
               "shapes": shape_list(shapes), "device": name,
               "nvidia_smi": smi_line})
         if bad_sign:
@@ -946,7 +953,8 @@ def main():
         emit({"phase": f"{tag}_recover", "scheme": sid, "rounds": nrp,
               "threshold": THRESHOLD, "nodes": N_NODES, "signers": signers,
               "equal_to_collective_signature": not same,
-              "verify_batch_all_valid": bool(ver.all()), "wall_s": wall,
+              "verify_batch_all_valid": bool(ver.all()),
+              "sha256": digest(rec), "wall_s": wall,
               "rounds_per_s": nrp / wall, "launches": launches,
               "shapes": shape_list(shapes), "device": name,
               "nvidia_smi": smi_line})
@@ -1029,14 +1037,17 @@ def main():
                 words * lanes * WORD_BYTES / HBM_BYTES_PER_S * 1e3)
 
     xbits = K.XLOOP_BITS
-    # K3 / K4 launch a warp a lane with the lane's slots in dynamic shared
-    # memory (csrc/group.cuh): record that layout
+    # K3 / K4 launch a warp a lane, K6 a thread group a lane, with the
+    # lane's slots in dynamic shared memory (csrc/group.cuh): record that
+    # layout
     group_layout = {}
     for kname, kind in (("miller_loop", "miller"),
-                        ("final_exponentiation", "finalexp")):
+                        ("final_exponentiation", "finalexp"),
+                        ("scalar_mul_bits", "ladder_g1"),
+                        ("scalar_mul_bits_g2", "ladder_g2")):
         lanes_pb, smem = K.group_layout(kind)
         group_layout[kname] = {
-            "threads_per_lane": FP.GROUP,
+            "threads_per_lane": FP.WIDTH[kind],
             "slots_per_lane": FP.compiled(kind)[1],
             "lanes_per_block": lanes_pb,
             "dynamic_smem_bytes_per_block": smem}
@@ -1072,8 +1083,8 @@ def main():
     group_counts = {k: FP.lane_counts(k, xbits)
                     for k in ("miller", "finalexp")}
 
-    def chain(kind):
-        c = group_counts[kind]
+    def chain(kind, c=None):
+        c = c or group_counts[kind]
         return {"code_products_per_lane": c["products"],
                 "critical_products": c["critical_products"],
                 "critical_linear_steps": c["critical_linear"]}
@@ -1220,9 +1231,9 @@ def main():
              (need_glv_g2(h0, h1) / (4 * pad),
               code_glv_g2(h0, h1) / (4 * pad)), 12 + 2 * 32 / 12 + 6)]),
         ("scalar_mul_bits", "ladder_var.cu", 595, "K6 G1",
-         ("k_ladder_var", "G1J"), []),
+         ("k_ladder_var_g1",), []),
         ("scalar_mul_bits_g2", "ladder_var.cu", 595, "K6 G2",
-         ("k_ladder_var", "G2J"), []),
+         ("k_ladder_var_g2",), []),
     ]
     ran = {"verify_batch_rlc": (rlc_launches, rlc_shapes),
            "exact_pass": (ex_launches, ex_shapes),
@@ -1255,16 +1266,19 @@ def main():
         """K6's inputs as its callers build them.  256 bits (signing):
         one random 256-bit scalar a lane, lanes 3-5 members with the
         scalars r and r + 2 (the last step's add meets P == -Q and P == Q)
-        and 0.  130 / 66 bits (recovery): random scalars' signed GLV
-        digits, the points' phi / psi lanes negated where a digit is
-        negative, one scalar 0.  Every warp mixes 0 and 1 bits, and
-        infinite and finite points."""
+        and 0.  16 bits (the DKG's Horner steps): random scalars, lane 3's
+        0 and lane 4's 2^16 - 1.  130 / 66 bits (recovery): random
+        scalars' signed GLV digits, the points' phi / psi lanes negated
+        where a digit is negative, one scalar 0.  Every warp mixes 0 and 1
+        bits, and infinite and finite points (lanes 0-2: infinity, the
+        generator, a point outside the group)."""
         curve = DC.G2 if g2 else DC.G1
-        if nbits == 256:
-            ks = [random.getrandbits(256) for _ in range(lanes)]
-            ks[3:6] = [R, R + 2, 0]
+        if nbits in (256, 16):
+            ks = [random.getrandbits(nbits) for _ in range(lanes)]
+            edge = [R, R + 2, 0] if nbits == 256 else [0, (1 << 16) - 1]
+            ks[3:3 + len(edge)] = edge
             return (spread(special[g2], lanes),
-                    torch.from_numpy(DC.msb_bits(ks, 256)).to(dev))
+                    torch.from_numpy(DC.msb_bits(ks, nbits)).to(dev))
         nl = DC.GLV_G2_LANES if g2 else DC.GLV_G1_LANES
         per = lanes // nl
         ks = [random.randrange(R) for _ in range(per)]
@@ -1345,21 +1359,31 @@ def main():
                     (12 + 2 * key / 12 + 6) if g2k else
                     (6 + 2 * key / 12 + 3))
         if kname.startswith("scalar_mul_bits"):
-            pts, bits = k6_inputs(g2k, key, lanes)
-            if g2k:
-                dbl, add = _imad(G2_DBL_NEED), _imad(G2_ADD_NEED)
-                cdbl, cadd = _imad(G2_DBL_CODE), _imad(G2_ADD_CODE)
-            else:
-                dbl, add, cdbl, cadd = _imad(2, 5), _imad(11, 5), \
-                    _imad(7), _imad(23)
-            return (f"{key} bits at {lanes}", key, lanes,
-                    lambda: K.scalar_mul_bits(pts, bits),
-                    lambda: K.scalar_mul_bits_plain(pts, bits), err_flat,
-                    (need_ladder_var(bits, dbl, add) / lanes,
-                     code_ladder_var(bits, cdbl, cadd) / lanes),
-                    (12 if g2k else 6) + key / 12)
+            return k6_shape(g2k, key, lanes)
         fail(f"no inputs for {kname} at {key}, {lanes} lanes")
 
+    def k6_shape(g2, nbits, lanes, label=None):
+        """A K6 shape: need from these bits, code and chain from the
+        program's own counts for nbits steps."""
+        pts, bits = k6_inputs(g2, nbits, lanes)
+        kind = "ladder_g2" if g2 else "ladder_g1"
+        counts = FP.lane_counts(kind, [0] * nbits)
+        if g2:
+            dbl, add = _imad(G2_DBL_NEED), _imad(G2_ADD_NEED)
+        else:
+            dbl, add = _imad(2, 5), _imad(11, 5)
+        return (label or f"{nbits} bits at {lanes}", nbits, lanes,
+                lambda: K.scalar_mul_bits(pts, bits),
+                lambda: K.scalar_mul_bits_plain(pts, bits), err_flat,
+                (need_ladder_var(bits, dbl, add) / lanes,
+                 code_group(counts)), (12 if g2 else 6) + nbits / 12,
+                chain(kind, counts))
+
+    # K6's tail check: 16 bits over 5 lanes, no multiple of a block's lanes
+    for sp in specs:
+        if sp[0].startswith("scalar_mul_bits"):
+            sp[5].append(k6_shape(sp[0].endswith("_g2"), 16, 5,
+                                  "16 bits at 5 lanes (check)"))
     timed_shapes = {(kname, key, lanes) for kname, *_, shapes in specs
                     for _, key, lanes, *_ in shapes}
     recorded = sorted({sh for _, shapes in ran.values() for sh in shapes},

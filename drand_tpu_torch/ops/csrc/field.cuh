@@ -1,8 +1,9 @@
 // BLS12-381 Fp and Fp2 arithmetic and the G1 and G2 group laws for the
 // port's Hopper kernels.
 //
-// In the point kernels one thread owns one lane; the Fp12 kernels (K3, K4)
-// run a warp a lane over this header's Fp product and sum (group.cuh).  An
+// In the point kernels K2, K7 and K8 one thread owns one lane; K3, K4 and
+// K6 run a thread group a lane over this header's Fp product and sum
+// (group.cuh).  An
 // Fp element is 12 x 32-bit little-endian words in Montgomery form with
 // R = 2^384 -- the same Montgomery values as the plain engine's 24 x 16-bit
 // limbs (drand_tpu_torch/ops/limbs.py), so the wrappers only regroup words.
@@ -247,16 +248,6 @@ DI void g1_infinity(G1J& r) {
   fp_one(r.X);
   fp_one(r.Y);
   fp_zero(r.Z);
-}
-
-// r = c ? a : b, word by word (the G1 twin of g2_select below).
-DI void g1_select(G1J& r, bool c, const G1J& a, const G1J& b) {
-  const Fp* pa = &a.X;
-  const Fp* pb = &b.X;
-  Fp* pr = &r.X;
-  UNROLL for (int k = 0; k < 3; k++)
-    UNROLL for (int w = 0; w < 12; w++)
-      pr[k].v[w] = c ? pa[k].v[w] : pb[k].v[w];
 }
 
 DNI void g1_double(G1J& r, const G1J& p) {
@@ -690,12 +681,6 @@ DI void point_double(G1J& r, const G1J& p) { g1_double(r, p); }
 DI void point_double(G2J& r, const G2J& p) { g2_double(r, p); }
 DI void point_add(G1J& r, const G1J& p, const G1J& q) { g1_add(r, p, q); }
 DI void point_add(G2J& r, const G2J& p, const G2J& q) { g2_add(r, p, q); }
-DI void point_select(G1J& r, bool c, const G1J& a, const G1J& b) {
-  g1_select(r, c, a, b);
-}
-DI void point_select(G2J& r, bool c, const G2J& a, const G2J& b) {
-  g2_select(r, c, a, b);
-}
 
 }  // namespace drand
 

@@ -28,21 +28,21 @@ using namespace drand;
 constexpr int NIN = 12;
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(GROUP * GROUP_MAX_LANES)
+__global__ void __launch_bounds__(GROUP_THREADS)
     k_finalexp(const uint32_t* in, uint32_t* out, const uint32_t* consts,
              const int32_t* prog, const int32_t* sched, int nsched,
              int64_t B) {
   extern __shared__ Fp smem[];
   const GroupProg g = group_prog(prog);
   int64_t idx;
-  Fp* lane = group_enter(smem, consts, g.nslots, B, &idx);
+  Fp* lane = group_enter<GROUP>(smem, consts, g.nslots, B, &idx);
   if (lane) group_lane(g, lane, smem, in, NIN, out, sched, nsched, B, idx);
 }
 
 extern "C" int drand_finalexp(const void* in, void* out, const void* consts,
                             const void* prog, int nslots, const void* sched,
                             int nsched, int64_t B, void* stream) {
-  DRAND_GROUP_LAUNCH(k_finalexp, B, nslots, stream, (const uint32_t*)in,
+  DRAND_GROUP_LAUNCH(k_finalexp, GROUP, B, nslots, stream, (const uint32_t*)in,
                      (uint32_t*)out, (const uint32_t*)consts,
                      (const int32_t*)prog, (const int32_t*)sched, nsched, B);
 }

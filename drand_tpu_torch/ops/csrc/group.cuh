@@ -1,22 +1,26 @@
-// A thread group per pairing lane: the interpreter of the Fp programs that
-// drand_tpu_torch/ops/fp12prog.py writes for K3 (miller.cu) and K4
-// (finalexp.cu).
+// A thread group per lane: the interpreter of the Fp programs that
+// drand_tpu_torch/ops/fp12prog.py writes for K3 (miller.cu), K4
+// (finalexp.cu) and K6 (ladder_var.cu).
 //
-// One warp (GROUP threads) owns one lane.  The lane's field values sit in
+// A group of W threads owns one lane: a warp (W = GROUP) for K3 and K4, a
+// quarter (G1) or half (G2) a warp for K6.  The lane's field values sit in
 // shared memory, one Fp per slot, and its work is a list of phases: in a
 // product phase every op is a Montgomery product (fp_mul), in a linear
-// phase every op is a +- b, halved mod p when asked.  The ops of a phase
-// are independent; thread t of the group runs ops t, t + GROUP, ... of it,
-// each in registers, and the group synchronises (__syncwarp) before the
-// next phase.  So the lane's dependent chain is one product per product
-// phase of at most GROUP ops, and no Fp12 value lives in local memory.
-// Every branch on the program (phase kind, loop bits) is uniform across
-// the group.
+// phase every op is a +- b, halved mod p when asked, or one of K6's flag
+// ops: an equality flag (every word all ones or all zeros) and a word-wise
+// select by such a flag, both branchless.  The ops of a phase are independent;
+// thread t of the group runs ops t, t + W, ... of it, each in registers,
+// and the warp synchronises (__syncwarp) before the next phase.  So the
+// lane's dependent chain is one product per product phase of at most W
+// ops, and no Fp12 value or point lives in local memory.  Every branch is
+// on the program (phase kind, op kind, loop bits of |x|) and so uniform
+// across the warp, whatever the lane's data: all groups of a warp run the
+// same phases, so a sub-warp group may synchronise the whole warp.
 //
-// group_phase(body) is the one place the group runs: on the card each
+// group_phase<W>(body) is the one place the group runs: on the card each
 // thread calls body(its index in the group) and the warp synchronises; on
 // the host (this header compiled as plain C++) the same body runs for
-// t = 0 .. GROUP-1 in turn.  A phase body touches only the lane's slots and
+// t = 0 .. W-1 in turn.  A phase body touches only the lane's slots and
 // temporaries that die with it, and the program writer guarantees that no
 // op of a phase writes a slot that another op of the phase reads, so the
 // host loop computes what the card computes.
@@ -25,7 +29,9 @@
 //   header [nslots, nfrags, nphases, nops, inv_in, inv_out]
 //   frags  2 per fragment: first phase, phase count
 //   phases 3 per phase: first op, op count, 1 = products / 0 = linear
-//   ops    4 per op: kind (0 product; 1 add, 2 sub, | 4 halve), d, a, b
+//   ops    4 per op: kind, d, a, b.  kind 0 product; 1 add, 2 sub, | 4
+//          halve; 8 d = (a == b) as a flag; 16 | f << 8 d = a where the
+//          flag in slot f is set, else b
 // Slot s < nslots is the lane's; s >= nslots is constant row s - nslots of
 // the bundle (row 0, the raw p, read as zero).
 
@@ -34,10 +40,11 @@
 
 namespace drand {
 
-constexpr int GROUP = 32;              // threads per lane: one warp
-constexpr int GROUP_MAX_LANES = 4;     // lanes (warps) per block at most
+constexpr int GROUP = 32;              // threads per lane of K3 / K4: a warp
+constexpr int GROUP_THREADS = 128;     // threads per block at most
 constexpr int GROUP_SMEM = 48 * 1024;  // no opt-in to more shared memory
-constexpr int OP_ADD = 1, OP_SUB = 2, OP_HALVE = 4;
+constexpr int OP_ADD = 1, OP_SUB = 2, OP_HALVE = 4, OP_EQ = 8, OP_SEL = 16;
+constexpr int OP_FLAG_SHIFT = 8;       // a select's flag slot: kind >> 8
 
 struct GroupProg {
   const int32_t* frags;
@@ -57,13 +64,14 @@ DI GroupProg group_prog(const int32_t* p) {
   return g;
 }
 
-template <class Body>
+template <int W, class Body>
 DI void group_phase(Body body) {
+  static_assert(W >= 1 && W <= 32 && 32 % W == 0, "a group within a warp");
 #ifdef __CUDACC__
-  body((int)(threadIdx.x % GROUP));
+  body((int)(threadIdx.x % W));
   __syncwarp();
 #else
-  for (int t = 0; t < GROUP; t++) body(t);
+  for (int t = 0; t < W; t++) body(t);
 #endif
 }
 
@@ -106,22 +114,41 @@ DI void fp_lin(Fp& r, const Fp& a, const Fp& b, int kind) {
   if (kind & OP_HALVE) fp_half(r);
 }
 
+// The flag a == b: every word all ones where equal, all zeros where not.
+DI void flag_eq(Fp& r, const Fp& a, const Fp& b) {
+  uint32_t acc = 0;
+  UNROLL for (int i = 0; i < 12; i++) acc |= a.v[i] ^ b.v[i];
+  const uint32_t m = 0u - (uint32_t)(acc == 0u);
+  UNROLL for (int i = 0; i < 12; i++) r.v[i] = m;
+}
+
+// r = f ? a : b, word by word under the flag's mask: no branch on data.
+DI void flag_sel(Fp& r, const Fp& f, const Fp& a, const Fp& b) {
+  UNROLL for (int i = 0; i < 12; i++)
+    r.v[i] = (a.v[i] & f.v[i]) | (b.v[i] & ~f.v[i]);
+}
+
 // Run fragment f of the program on one lane (slots `lane`, constants `cs`).
+// An op reads all its operands before it writes.
+template <int W>
 DI void run_frag(const GroupProg& g, Fp* lane, const Fp* cs, int f) {
   const int p0 = g.frags[2 * f], np = g.frags[2 * f + 1];
   for (int ph = p0; ph < p0 + np; ph++) {
     const int32_t* phase = g.phases + 3 * ph;
     const int o0 = phase[0], n = phase[1];
     const bool prod = phase[2] != 0;
-    group_phase([&](int t) {
-      for (int k = t; k < n; k += GROUP) {
+    group_phase<W>([&](int t) {
+      for (int k = t; k < n; k += W) {
         const int32_t* op = g.ops + 4 * (o0 + k);
-        const int sa = op[2], sb = op[3];
+        const int kind = op[0], sa = op[2], sb = op[3];
         const Fp a = sa < g.nslots ? lane[sa] : cs[sa - g.nslots];
         const Fp b = sb < g.nslots ? lane[sb] : cs[sb - g.nslots];
         Fp r;
         if (prod) fp_mul(r, a, b);
-        else fp_lin(r, a, b, op[0]);
+        else if (kind & OP_SEL)
+          flag_sel(r, lane[kind >> OP_FLAG_SHIFT], a, b);
+        else if (kind & OP_EQ) flag_eq(r, a, b);
+        else fp_lin(r, a, b, kind);
         lane[op[1]] = r;
       }
     });
@@ -135,17 +162,23 @@ DI void load_group_consts(Fp* cs, const uint32_t* consts, int t, int nt) {
 }
 
 // Lane I/O of n Fp coordinates at slots 0 .. n-1 (structure of arrays).
+// Every group of a warp calls these (they synchronise the warp); a group
+// past the last lane reads lane B - 1 and stores nothing (group_enter).
+template <int W>
 DI void load_lane(Fp* lane, const uint32_t* in, int n, int64_t B,
                   int64_t idx) {
-  group_phase([&](int t) {
-    if (t < n) load_fp(lane[t], in, t, B, idx);
+  const int64_t src = idx < B ? idx : B - 1;
+  group_phase<W>([&](int t) {
+    for (int c = t; c < n; c += W) load_fp(lane[c], in, c, B, src);
   });
 }
 
+template <int W>
 DI void store_lane(uint32_t* out, const Fp* lane, int n, int64_t B,
                    int64_t idx) {
-  group_phase([&](int t) {
-    if (t < n) store_fp(out, t, lane[t], B, idx);
+  group_phase<W>([&](int t) {
+    for (int c = t; c < n && idx < B; c += W)
+      store_fp(out, c, lane[c], B, idx);
   });
 }
 
@@ -161,18 +194,18 @@ DI void group_lane(const GroupProg& g, Fp* lane, const Fp* cs,
                    const uint32_t* in, int nin, uint32_t* out,
                    const int32_t* sched, int nsched, int64_t B,
                    int64_t idx) {
-  load_lane(lane, in, nin, B, idx);
+  load_lane<GROUP>(lane, in, nin, B, idx);
   for (int s = 0; s < nsched; s++) {
     const int f = sched[s];
     if (f == SCHED_INVERT) {
-      group_phase([&](int t) {
+      group_phase<GROUP>([&](int t) {
         if (t == 0) fp_inv(lane[g.inv_out], lane[g.inv_in]);
       });
     } else {
-      run_frag(g, lane, cs, f);
+      run_frag<GROUP>(g, lane, cs, f);
     }
   }
-  store_lane(out, lane, 12, B, idx);
+  store_lane<GROUP>(out, lane, 12, B, idx);
 }
 
 // 1/a in Montgomery form, 0 -> 0: the binary extended gcd on the integer
@@ -242,25 +275,29 @@ DNI void fp_inv(Fp& r, const Fp& a) {
 
 }  // namespace drand
 
-// Launch of a group kernel: GROUP threads a lane, the lanes' slots and the
-// constant slots in dynamic shared memory, at most 48 KB a block (no
-// opt-in).  Lanes a block: of 1 .. GROUP_MAX_LANES, the count that keeps
-// the most lanes resident on an SM (228 KB of shared memory, 1 KB of it
-// reserved per block; 64 warps).  Returns cudaGetLastError() (1, invalid
-// value, if one lane's slots do not fit).
+// Launch of a group kernel: `width` threads a lane, the lanes' slots and
+// the constant slots in dynamic shared memory, at most 48 KB a block (no
+// opt-in).  Lanes a block: whole warps of lanes, at most GROUP_THREADS
+// threads, the count that keeps the most lanes resident on an SM (228 KB
+// of shared memory, 1 KB of it reserved per block; 2048 threads, 32
+// blocks).  Returns cudaGetLastError() (1, invalid value, if one lane's
+// slots do not fit).
 constexpr int SM_SMEM = 228 * 1024, BLOCK_SMEM_RESERVED = 1024;
+constexpr int SM_THREADS = 2048, SM_BLOCKS = 32;
 
 static inline int group_smem_bytes(int lanes, int nslots) {
   return (int)sizeof(drand::Fp) * (drand::N_CONST + lanes * nslots);
 }
 
-static inline int group_lanes_per_block(int nslots) {
+static inline int group_lanes_per_block(int nslots, int width) {
   int best = 0, best_res = 0;
-  for (int l = 1; l <= drand::GROUP_MAX_LANES; l++) {
+  const int step = 32 / width;  // lanes a warp
+  for (int l = step; l * width <= drand::GROUP_THREADS; l += step) {
     const int smem = group_smem_bytes(l, nslots);
     if (smem > drand::GROUP_SMEM) break;
     int blocks = SM_SMEM / (smem + BLOCK_SMEM_RESERVED);
-    if (blocks * l > 64) blocks = 64 / l;
+    if (blocks * l * width > SM_THREADS) blocks = SM_THREADS / (l * width);
+    if (blocks > SM_BLOCKS) blocks = SM_BLOCKS;
     if (blocks * l >= best_res) {
       best = l;
       best_res = blocks * l;
@@ -269,30 +306,39 @@ static inline int group_lanes_per_block(int nslots) {
   return best;
 }
 
+// The layout of a group launch, for the records: out[0] lanes a block,
+// out[1] dynamic shared-memory bytes a block.
+extern "C" int drand_group_layout(int nslots, int width, int32_t* out);
+
 #ifdef __CUDACC__
-#define DRAND_GROUP_LAUNCH(kernel, B, nslots, stream, ...)                   \
+#define DRAND_GROUP_LAUNCH(kernel, W, B, nslots, stream, ...)                \
   do {                                                                       \
-    const int lanes_ = group_lanes_per_block(nslots);                        \
+    const int lanes_ = group_lanes_per_block(nslots, W);                     \
     if (lanes_ < 1) return 1;                                                \
     if ((B) > 0) {                                                           \
       const int64_t blocks_ = ((B) + lanes_ - 1) / lanes_;                   \
       const size_t smem_ = (size_t)group_smem_bytes(lanes_, nslots);        \
-      kernel<<<(unsigned)blocks_, lanes_ * GROUP, smem_,                     \
+      kernel<<<(unsigned)blocks_, lanes_ * (W), smem_,                       \
                (cudaStream_t)(stream)>>>(__VA_ARGS__);                       \
     }                                                                        \
     return (int)cudaGetLastError();                                          \
   } while (0)
 
-// The block's constant slots at smem, this warp's lane slots after them;
-// nullptr for a warp past the last lane (once the block has loaded the
-// constants together).
+// The block's constant slots at smem, this group's lane slots after them;
+// nullptr for a warp whose first lane is past the last (once the block has
+// loaded the constants together).  The other groups of a live warp run:
+// past the last lane, a group repeats lane B - 1 and stores nothing
+// (load_lane, store_lane), so every phase's __syncwarp meets all 32
+// threads.
+template <int W>
 DI drand::Fp* group_enter(drand::Fp* smem, const uint32_t* consts, int nslots,
                           int64_t B, int64_t* idx) {
   drand::load_group_consts(smem, consts, threadIdx.x, blockDim.x);
   __syncthreads();
-  const int w = threadIdx.x / drand::GROUP;
-  *idx = (int64_t)blockIdx.x * (blockDim.x / drand::GROUP) + w;
-  return *idx < B ? smem + drand::N_CONST + w * nslots : nullptr;
+  const int gi = threadIdx.x / W;
+  *idx = (int64_t)blockIdx.x * (blockDim.x / W) + gi;
+  const int64_t warp_first = *idx - (threadIdx.x % 32) / W;
+  return warp_first < B ? smem + drand::N_CONST + gi * nslots : nullptr;
 }
 #else
 #include <vector>

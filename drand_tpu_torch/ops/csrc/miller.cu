@@ -26,31 +26,29 @@ using namespace drand;
 // slots 0-5: px, py, qx (2), qy (2) in; slots 0-11: the Fp12 leaves out
 constexpr int NIN = 6;
 
-// The layout of a group launch with this many slots a lane (K3 and K4
-// share group.cuh's launch), for the records: out[0] lanes a block,
-// out[1] dynamic shared-memory bytes a block.
-extern "C" int drand_group_layout(int nslots, int32_t* out) {
-  out[0] = group_lanes_per_block(nslots);
+// group.cuh's layout of a launch of K3, K4 or K6, for the records.
+extern "C" int drand_group_layout(int nslots, int width, int32_t* out) {
+  out[0] = group_lanes_per_block(nslots, width);
   out[1] = group_smem_bytes(out[0], nslots);
   return 0;
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(GROUP * GROUP_MAX_LANES)
+__global__ void __launch_bounds__(GROUP_THREADS)
     k_miller(const uint32_t* in, uint32_t* out, const uint32_t* consts,
              const int32_t* prog, const int32_t* sched, int nsched,
              int64_t B) {
   extern __shared__ Fp smem[];
   const GroupProg g = group_prog(prog);
   int64_t idx;
-  Fp* lane = group_enter(smem, consts, g.nslots, B, &idx);
+  Fp* lane = group_enter<GROUP>(smem, consts, g.nslots, B, &idx);
   if (lane) group_lane(g, lane, smem, in, NIN, out, sched, nsched, B, idx);
 }
 
 extern "C" int drand_miller(const void* in, void* out, const void* consts,
                             const void* prog, int nslots, const void* sched,
                             int nsched, int64_t B, void* stream) {
-  DRAND_GROUP_LAUNCH(k_miller, B, nslots, stream, (const uint32_t*)in,
+  DRAND_GROUP_LAUNCH(k_miller, GROUP, B, nslots, stream, (const uint32_t*)in,
                      (uint32_t*)out, (const uint32_t*)consts,
                      (const int32_t*)prog, (const int32_t*)sched, nsched, B);
 }

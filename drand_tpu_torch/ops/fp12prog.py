@@ -1,32 +1,40 @@
-"""Fp programs of the group-per-lane Fp12 kernels K3 and K4.
+"""Fp programs of the group-per-lane kernels: K3 and K4 (Fp12), K6 (points).
 
 K3 (``csrc/miller.cu``) and K4 (``csrc/finalexp.cu``) run one warp,
-``GROUP`` = 32 threads, per pairing lane.  A lane's field values live in
+``GROUP`` = 32 threads, per pairing lane; K6 (``csrc/ladder_var.cu``) runs
+``WIDTH[kind]`` threads per ladder lane.  A lane's field values live in
 shared memory, one Fp (12 words) per slot, and its work is straight-line Fp
 code cut into phases: in a product phase every op is a Montgomery product,
-in a linear phase every op is a +- b, optionally halved mod p.  The ops of
-one phase are independent; the group's threads take them round robin and
-synchronise before the next phase (``csrc/group.cuh``).  A lane's chain of
-dependent products is then one product per product phase of at most GROUP
-ops, where the one-thread-a-lane kernels ran every product in a row.
+in a linear phase every op is a +- b, optionally halved mod p, or one of
+the two flag ops K6's complete add needs: an equality flag (every word all
+ones or all zeros) and a word-wise select by such a flag, branchless.  The
+ops of one phase are independent; the group's threads take them round
+robin and synchronise before the next phase (``csrc/group.cuh``).  A lane's
+chain of dependent products is then one product per product phase of at
+most its width of ops, where the one-thread-a-lane kernels ran every
+product in a row.
 
 This module writes those programs.  The formulas are traced over symbolic
 Fp values: Karatsuba over the tower for dense products, Granger-Scott
 squaring in the cyclotomic subgroup (K4's pow_x chains: the easy part has
 already mapped every nonzero input into it), the sparse line product (K3),
 the tower inverse down to one Fp inverse (which K4 computes on one thread
-by the binary extended gcd), and the Miller steps with the field values of
-``kernels.dbl_step`` / ``kernels.add_step``.  Sums are kept as linear forms
-over computed values and built as balanced add trees only where a product
-or an output needs them.  Each fragment is then cut into phases (linear ops
-as soon as their operands exist, products batched) and given slots: the
+by the binary extended gcd), the Miller steps with the field values of
+``kernels.dbl_step`` / ``kernels.add_step``, and K6's ladder step: the
+Jacobian double and complete add of ``curve.DevCurve`` over Fp (G1) or Fp2
+(G2) and the selects that pick the step's result.  Sums are kept as linear
+forms over computed values and built as balanced add trees only where a
+product or an output needs them.  Each fragment is then cut into phases
+(products as early as they can run, each linear op between two product
+phases where it adds no depth) and given slots: the
 named slots carry the state the kernel's loops keep, temporaries share the
 rest, and no op of a phase writes a slot another op of that phase reads.
 
 Field values are unique, so these programs give the plain versions'
-results (``kernels.miller_loop_plain``, ``final_exponentiation_plain``)
-limb for limb.  What fixes a representative is kept: the Miller steps'
-line coefficients, the order of updates to f, and the hard part's chain.
+results (``kernels.miller_loop_plain``, ``final_exponentiation_plain``,
+``scalar_mul_bits_plain``) limb for limb.  What fixes a representative is
+kept: the Miller steps' line coefficients, the order of updates to f, the
+hard part's chain, and the group law's formulas.
 
 ``program(kind)`` returns one int32 table per kernel and ``schedule(kind)``
 the list of fragments a lane runs (the loops over the bits of |x|), both
@@ -35,7 +43,9 @@ passed with the launch:
   header  [nslots, nfrags, nphases, nops, inv_in, inv_out]
   frags   2 per fragment: first phase, phase count
   phases  3 per phase: first op, op count, 1 for products / 0 for linear
-  ops     4 per op: kind (0 product; 1 add, 2 sub, | 4 halve), d, a, b
+  ops     4 per op: kind, d, a, b.  kind 0 product; 1 add, 2 sub, | 4
+          halve; 8 d = (a == b) as a flag; 16 | f << 8 d = a where the
+          flag in slot f is set, else b
 
 Slots below nslots are the lane's; slot nslots + row is row ``row`` of the
 constant bundle (``kernels.CONST_NAMES``), row 0 read as zero.
@@ -50,7 +60,8 @@ from ..crypto.host import field as HF
 from ..crypto.host.params import P, X as BLS_X
 
 GROUP = 32                     # threads per pairing lane (one warp)
-PROD, ADD, SUB, HALVE = 0, 1, 2, 4
+PROD, ADD, SUB, HALVE, EQ, SEL = 0, 1, 2, 4, 8, 16
+FLAG_SHIFT = 8                 # a select's flag slot: kind >> FLAG_SHIFT
 XBITS = [int(c) for c in bin(-BLS_X)[3:]]   # |x| after the leading 1
 
 # constant bundle rows (kernels.CONST_NAMES) and their values (not Montgomery)
@@ -64,14 +75,21 @@ for _j in (1, 2):
 _MUL_EST, _LIN_EST = 10, 1     # relative latencies for balancing add trees
 
 
-class _Node:
-    """A computed Fp value: an input slot, a constant row, or an op."""
-    __slots__ = ("id", "kind", "a", "b", "half", "loc", "est")
+_OPS = ("mul", "add", "sub", "eq", "sel")
 
-    def __init__(self, nid, kind, a=None, b=None, half=False, loc=None,
-                 est=0):
-        self.id, self.kind, self.a, self.b = nid, kind, a, b
+
+class _Node:
+    """A computed Fp value: an input slot, a constant row, or an op (a
+    select's flag in f)."""
+    __slots__ = ("id", "kind", "a", "b", "f", "half", "loc", "est")
+
+    def __init__(self, nid, kind, a=None, b=None, f=None, half=False,
+                 loc=None, est=0):
+        self.id, self.kind, self.a, self.b, self.f = nid, kind, a, b, f
         self.half, self.loc, self.est = half, loc, est
+
+    def operands(self):
+        return (self.a, self.b) + ((self.f,) if self.f is not None else ())
 
 
 class _F:
@@ -154,9 +172,9 @@ class _Frag:
     def zero(self):
         return _F(self, {})
 
-    def _op(self, kind, a, b, half=False):
-        return self._new(kind, a=a, b=b, half=half,
-                         est=max(a.est, b.est) + _LIN_EST)
+    def _op(self, kind, a, b, half=False, f=None):
+        est = max(a.est, b.est, f.est if f is not None else 0)
+        return self._new(kind, a=a, b=b, f=f, half=half, est=est + _LIN_EST)
 
     def _scaled(self, n, j):
         """The node 2^j * n (doublings, shared)."""
@@ -228,10 +246,76 @@ class _Frag:
                                        est=max(nx.est, ny.est) + _MUL_EST)
         return _F(self, {self.memo[key]: 1})
 
+    def eq(self, x, y):
+        """The flag x == y: every word of the value all ones, or all zeros
+        (a flag is no field value: it only feeds eq's and sel's)."""
+        nx, ny = sorted((self.node(x), self.node(y)), key=lambda n: n.id)
+        key = ("eq", nx.id, ny.id)
+        if key not in self.memo:
+            self.memo[key] = self._op("eq", nx, ny)
+        return _F(self, {self.memo[key]: 1})
+
+    def sel(self, f, x, y):
+        """x where the flag f is set, else y: word by word, no branch.
+        With flags for x and y it is a logic op: sel(f, g, 0) = f & g,
+        sel(f, 0, g) = g & ~f."""
+        nf, nx, ny = self.node(f), self.node(x), self.node(y)
+        if nx is ny:
+            return _F(self, {nx: 1})
+        key = ("sel", nf.id, nx.id, ny.id)
+        if key not in self.memo:
+            self.memo[key] = self._op("sel", nx, ny, f=nf)
+        return _F(self, {self.memo[key]: 1})
+
     def out(self, slot, f):
         self.outputs.append((slot, self.node(f)))
 
     # -- phases and slots ----------------------------------------------------
+
+    def _cut(self, ops, outs):
+        """Phases: every product as early as it can run, each product phase
+        all the products that are ready; a linear op in the gap between two
+        product phases where it deepens no chain of linear phases.  Gap g
+        (after product phase g) runs the linear ops that a product of phase
+        g + 1 or a later gap needs by then, and with them every other
+        linear op that fits within their depth; what only the outputs read
+        waits for the last gap.  (Running every ready linear op before the
+        next products, K6's flag and select chains cost a step 9 linear
+        phases more on G1.)"""
+        gap, readers = {}, {}
+        for n in ops:                     # node ids are topological
+            g = max((gap.get(c.id, 0) for c in n.operands()), default=0)
+            gap[n.id] = g + 1 if n.kind == "mul" else g
+            for c in n.operands():
+                readers.setdefault(c.id, []).append(n)
+        nprod = max((gap[n.id] for n in ops if n.kind == "mul"), default=0)
+        due = {}
+        for n in reversed(ops):
+            if n.kind == "mul":
+                continue
+            d = [gap[r.id] - 1 if r.kind == "mul" else due[r.id]
+                 for r in readers.get(n.id, [])]
+            due[n.id] = min(d + ([nprod] if n.id in outs else []))
+        phases, pending = [], [n for n in ops if n.kind != "mul"]
+        for g in range(nprod + 1):
+            level = {}
+            for n in pending:
+                if gap[n.id] <= g:
+                    level[n.id] = 1 + max((level[c.id] for c in n.operands()
+                                           if c.id in level), default=0)
+            need = [level[n.id] for n in pending
+                    if n.id in level and (due[n.id] == g or g == nprod)]
+            depth = max(need, default=0)
+            for k in range(1, depth + 1):
+                phases.append((False, [n for n in pending
+                                       if level.get(n.id) == k]))
+            pending = [n for n in pending if level.get(n.id, depth + 1)
+                       > depth]
+            if g < nprod:
+                phases.append((True, [n for n in ops if n.kind == "mul"
+                                      and gap[n.id] == g + 1]))
+        assert not pending
+        return phases
 
     def compile(self, temp_base):
         """-> (phases [(is_product, [(kind, d, a, b)])], temps used).  Slot
@@ -242,29 +326,17 @@ class _Frag:
             if n.id in live:
                 continue
             live.add(n.id)
-            if n.kind in ("mul", "add", "sub"):
-                stack += [n.a, n.b]
-        ops = [n for n in self.nodes if n.id in live
-               and n.kind in ("mul", "add", "sub")]
-        done = {n.id for n in self.nodes if n.kind in ("in", "const")}
-        phase_of, phases, remaining = {}, [], ops
-        while remaining:
-            ready = [n for n in remaining
-                     if n.a.id in done and n.b.id in done]
-            lin = [n for n in ready if n.kind != "mul"]
-            batch = lin or [n for n in ready if n.kind == "mul"]
-            assert batch, "cyclic fragment"
-            for n in batch:
-                phase_of[n.id] = len(phases)
-            phases.append((not lin, batch))
-            done |= {n.id for n in batch}
-            bid = {n.id for n in batch}
-            remaining = [n for n in remaining if n.id not in bid]
+            if n.kind in _OPS:
+                stack += n.operands()
+        ops = [n for n in self.nodes if n.id in live and n.kind in _OPS]
+        phases = self._cut(ops, {n.id for _, n in self.outputs})
+        phase_of = {n.id: i for i, (_, batch) in enumerate(phases)
+                    for n in batch}
         copy_phase = len(phases)
 
         reads = {}                        # node id -> [(phase, reader id)]
         for n in ops:
-            for c in (n.a, n.b):
+            for c in n.operands():
                 reads.setdefault(c.id, []).append((phase_of[n.id], n.id))
         placed, copies, slot_taken = {}, [], set()
         for slot, n in self.outputs:
@@ -308,7 +380,7 @@ class _Frag:
         def own_slot(n, p):
             """A temp operand that n alone reads last, in n's phase: n may
             overwrite it (an op reads its operands before it writes)."""
-            for c in (n.a, n.b):
+            for c in n.operands():
                 at = loc.get(c.id)
                 i = at - temp_base if isinstance(at, int) else -1
                 if (i >= 0 and c.id not in placed and last[c.id] == p
@@ -333,9 +405,15 @@ class _Frag:
             temps[i] = last[n.id]
             loc[n.id] = temp_base + i
 
-        code = {"mul": PROD, "add": ADD, "sub": SUB}
-        out = [(is_prod, [(code[n.kind] | (HALVE if n.half else 0),
-                           loc[n.id], loc[n.a.id], loc[n.b.id])
+        def kind(n):
+            if n.kind == "sel":
+                f = loc[n.f.id]
+                assert isinstance(f, int), "a constant flag"
+                return SEL | f << FLAG_SHIFT
+            return {"mul": PROD, "add": ADD, "sub": SUB, "eq": EQ}[n.kind] \
+                | (HALVE if n.half else 0)
+
+        out = [(is_prod, [(kind(n), loc[n.id], loc[n.a.id], loc[n.b.id])
                           for n in sorted(batch, key=lambda n: n.id)])
                for is_prod, batch in phases]
         if copies:
@@ -346,6 +424,11 @@ class _Frag:
         return out, len(temps)
 
 
+def _op_reads(k, a, b):
+    """The slots an op (kind k, operands a and b) reads."""
+    return (a, b, k >> FLAG_SHIFT) if k & SEL else (a, b)
+
+
 def _check_phases(phases):
     """No op writes a slot that another op of its phase reads, and no two
     ops of a phase write the same slot."""
@@ -354,8 +437,9 @@ def _check_phases(phases):
         assert len(set(writes)) == len(writes), "two writes to one slot"
         for i, (_, d, a, b) in enumerate(ops):
             assert not isinstance(d, tuple), "write to a constant"
-            for j, (_, _, a2, b2) in enumerate(ops):
-                assert i == j or d not in (a2, b2), "read/write race"
+            for j, (k2, _, a2, b2) in enumerate(ops):
+                assert i == j or d not in _op_reads(k2, a2, b2), \
+                    "read/write race"
 
 
 # ---------------------------------------------------------------------------
@@ -725,13 +809,168 @@ def _fe_h5d(g):
     _fp12_out(g, 0, _fp12_mul(_fp12_in(g, FE["E1"]), _fp12_in(g, FE["E2"])))
 
 
+# K6: a point's coordinates are field elements, an Fp as a 1-tuple of forms
+# (G1), an Fp2 as a pair (G2), so one set of formulas serves both curves.
+
+def _e_add(a, b):
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def _e_sub(a, b):
+    return tuple(x - y for x, y in zip(a, b))
+
+
+def _e_scale(a, k):
+    return tuple(k * x for x in a)
+
+
+def _e_mul(a, b):
+    return (a[0] * b[0],) if len(a) == 1 else _fp2_mul(a, b)
+
+
+def _e_sqr(a):
+    return (a[0] * a[0],) if len(a) == 1 else _fp2_sqr(a)
+
+
+def _e_eq(g, a, b):
+    """The flag a == b (every component)."""
+    f = g.eq(a[0], b[0])
+    for x, y in zip(a[1:], b[1:]):
+        f = g.sel(f, g.eq(x, y), g.zero())
+    return f
+
+
+def _e_sel(g, f, a, b):
+    return tuple(g.sel(f, x, y) for x, y in zip(a, b))
+
+
+def _e_const(g, v, n):
+    """The element v (0 or 1) of a field of n components."""
+    return (g.const(ONE_ROW) if v else g.zero(),) + (g.zero(),) * (n - 1)
+
+
+def _pt_double(p):
+    """curve.DevCurve.double: A = X^2, B = Y^2, C = B^2, D = 2((X + B)^2 -
+    A - C), E = 3A; X3 = E^2 - 2D, Y3 = E (D - X3) - 8C, Z3 = 2YZ."""
+    X1, Y1, Z1 = p
+    A, B, t = _e_sqr(X1), _e_sqr(Y1), _e_mul(Y1, Z1)
+    C, U = _e_sqr(B), _e_sqr(_e_add(X1, B))
+    D = _e_scale(_e_sub(_e_sub(U, A), C), 2)
+    E = _e_scale(A, 3)
+    X3 = _e_sub(_e_sqr(E), _e_scale(D, 2))
+    Y3 = _e_sub(_e_mul(E, _e_sub(D, X3)), _e_scale(C, 8))
+    return X3, Y3, _e_scale(t, 2)
+
+
+# Slots: the accumulator at 0 (the output), P, the step's bit as a flag
+# (csrc/ladder_var.cu writes it before each step), then what depends on P
+# alone: Z2^2, Z2^3 and the flag Z2 == 0, made once by the first fragment.
+def _k6_layout(n):
+    """The named slots of K6 over a field of n components."""
+    c = 3 * n
+    return dict(ACC=0, PT=c, BIT=2 * c, ZZ=2 * c + 1, ZZZ=2 * c + 1 + n,
+                INF2=2 * c + 1 + 2 * n, N=2 * c + 2 + 2 * n)
+
+
+K6 = {1: _k6_layout(1), 2: _k6_layout(2)}
+K6_INIT, K6_STEP = range(2)
+
+
+def _k6_elem(g, base, n):
+    return tuple(g.inp(base + i) for i in range(n))
+
+
+def _k6_point(g, base, n):
+    return tuple(_k6_elem(g, base + n * i, n) for i in range(3))
+
+
+def _k6_out(g, base, pt):
+    for i, x in enumerate(x for c in pt for x in c):
+        g.out(base + i, x)
+
+
+def _k6_init(g, n):
+    """acc = infinity (1, 1, 0); P's Z2^2, Z2^3 and Z2 == 0."""
+    lay = K6[n]
+    one, zero = _e_const(g, 1, n), _e_const(g, 0, n)
+    _k6_out(g, lay["ACC"], (one, one, zero))
+    z2 = _k6_elem(g, lay["PT"] + 2 * n, n)
+    zz = _e_sqr(z2)
+    for i, x in enumerate(zz + _e_mul(z2, zz)):
+        g.out(lay["ZZ"] + i, x)
+    g.out(lay["INF2"], _e_eq(g, z2, zero))
+
+
+def _k6_step(g, n):
+    """acc <- 2 acc, then 2 acc + P where the bit is set: DevCurve.double,
+    then DevCurve.add(2 acc, P) with its field values (the embedded
+    doubling for 2 acc == P included), every step and every lane alike.
+
+    The plain version's selects (curve.py add, then the bit's) give, with
+    acc2 = 2 acc: acc2 where bit & ~inf2 is clear; else P where inf1; else
+    the embedded double where U1 == U2 and S1 == S2, infinity where U1 ==
+    U2 alone, the generic sum where U1 != U2 (in add, same_x carries ~inf1
+    & ~inf2, which these branches already have).  The same picks are made
+    here as one chain of selects under disjoint flags, ordered so that the
+    generic sum, which is ready last, is picked last."""
+    lay = K6[n]
+    acc = _k6_point(g, lay["ACC"], n)
+    X2, Y2, Z2 = _k6_point(g, lay["PT"], n)
+    Z2Z2 = _k6_elem(g, lay["ZZ"], n)
+    t1 = _k6_elem(g, lay["ZZZ"], n)
+    acc2 = tuple(_mat(g, c) for c in _pt_double(acc))
+    X1, Y1, Z1 = acc2
+    # DevCurve.add(acc2, P), its products group by group
+    Z1Z1, ZS = _e_sqr(Z1), _e_sqr(_e_add(Z1, Z2))
+    U1, U2 = _e_mul(X1, Z2Z2), _e_mul(X2, Z1Z1)
+    S1, S2 = _e_mul(Y1, t1), _e_mul(Y2, _e_mul(Z1, Z1Z1))
+    H = _e_sub(U2, U1)
+    rr = _e_scale(_e_sub(S2, S1), 2)
+    I = _e_sqr(_e_scale(H, 2))
+    J, V, RR = _e_mul(H, I), _e_mul(U1, I), _e_sqr(rr)
+    Z3 = _e_mul(_e_sub(_e_sub(ZS, Z1Z1), Z2Z2), H)
+    X3 = _e_sub(_e_sub(RR, J), _e_scale(V, 2))
+    Y3 = _e_sub(_e_mul(rr, _e_sub(V, X3)), _e_scale(_e_mul(S1, J), 2))
+    dbl = _pt_double(acc2)
+    # the flags, then the picks
+    zero = _e_const(g, 0, n)
+    f0 = g.zero()
+    inf1 = _e_eq(g, Z1, zero)
+    eq_u, eq_s = _e_eq(g, U1, U2), _e_eq(g, S1, S2)
+    cond = g.sel(g.inp(lay["INF2"]), f0, g.inp(lay["BIT"]))  # bit & ~inf2
+    c_pt = g.sel(cond, inf1, f0)
+    c_add = g.sel(inf1, f0, cond)
+    c_u = g.sel(c_add, eq_u, f0)
+    c_dbl, c_inf = g.sel(c_u, eq_s, f0), g.sel(eq_s, f0, c_u)
+    c_gen = g.sel(eq_u, f0, c_add)
+    one = _e_const(g, 1, n)
+    out = []
+    for a2, p, inf, d, gen in zip(acc2, (X2, Y2, Z2), (one, one, zero), dbl,
+                                  (X3, Y3, Z3)):
+        v = _e_sel(g, c_pt, p, a2)
+        v = _e_sel(g, c_inf, inf, v)
+        v = _e_sel(g, c_dbl, d, v)
+        out.append(_e_sel(g, c_gen, gen, v))
+    _k6_out(g, lay["ACC"], out)
+
+
 KINDS = {
     "miller": (ML["N"], [_ml_init, _ml_dbl, _ml_add, _ml_fin], (0, 0)),
     "finalexp": (FE["N"], [_fe_pre, _fe_post, _fe_cyc, _fe_mulg, _fe_h1,
                            _fe_h2, _fe_h3, _fe_h4, _fe_h5a, _fe_h5b, _fe_h5c,
                            _fe_h5d],
                  (FE["NRM"], FE["NINV"])),
+    "ladder_g1": (K6[1]["N"], [lambda g: _k6_init(g, 1),
+                               lambda g: _k6_step(g, 1)], (0, 0)),
+    "ladder_g2": (K6[2]["N"], [lambda g: _k6_init(g, 2),
+                               lambda g: _k6_step(g, 2)], (0, 0)),
 }
+# threads a lane: K3 / K4 a warp; K6 on G1 a quarter warp (no step phase
+# holds more than 8 products), on G2 half a warp (up to 18 Fp products a
+# phase; a whole warp ran slower, PERF.md).  csrc/ladder_var.cu compiles
+# the same widths and checks them at launch.
+WIDTH = {"miller": GROUP, "finalexp": GROUP, "ladder_g1": 8,
+         "ladder_g2": 16}
 
 
 @lru_cache(maxsize=None)
@@ -772,26 +1011,31 @@ def program(kind):
 
 def frag_stats(kind):
     """Per fragment: products, linear ops, product phases, linear phases,
-    and the products on one lane's critical path (ceil(n / GROUP) per
+    and the products on one lane's critical path (ceil(n / width) per
     product phase)."""
-    out = []
+    w, out = WIDTH[kind], []
     for ph in compiled(kind)[0]:
         prods = [len(ops) for p, ops in ph if p]
         lins = [len(ops) for p, ops in ph if not p]
         out.append({"products": sum(prods), "linear_ops": sum(lins),
                     "product_phases": len(prods), "linear_phases": len(lins),
-                    "critical_products": sum(-(-n // GROUP) for n in prods),
-                    "critical_linear": sum(-(-n // GROUP) for n in lins)})
+                    "critical_products": sum(-(-n // w) for n in prods),
+                    "critical_linear": sum(-(-n // w) for n in lins)})
     return out
 
 
 INVERT = -1       # schedule entry: K4's Fp inverse, slot inv_in -> inv_out
+BIT_FLAG = -2     # schedule entry: K6 writes the step's bit as a flag
 
 
 def schedule(kind, xbits=None):
     """The fragments one lane runs, in order, for loop bits xbits (|x|
     after its leading one): the kernel walks this list, so the loops over
-    the bits of |x| live here and not in the kernels."""
+    the bits of |x| live here and not in the kernels.  K6's xbits are a
+    lane's scalar bits: its init, then for each bit, whatever it is, the
+    bit's flag and a step (csrc/ladder_var.cu loops so itself)."""
+    if kind.startswith("ladder"):
+        return [K6_INIT] + [BIT_FLAG, K6_STEP] * len(xbits)
     xbits = XBITS if xbits is None else xbits
     loop = lambda step, add: [f for b in xbits
                               for f in ((step, add) if b else (step,))]
@@ -807,13 +1051,17 @@ def lane_counts(kind, xbits=None):
     """One lane's totals over its schedule: products (code), linear ops,
     and the dependent products and linear steps of its critical path.
     K4's Fp inverse (binary extended gcd on one thread, then one product by
-    R^3) counts as one product."""
+    R^3) counts as one product, K6's bit flag as one linear phase."""
     st = frag_stats(kind)
     tot = dict.fromkeys(st[0], 0)
     for f in schedule(kind, xbits):
         if f == INVERT:
             tot["products"] += 1
             tot["critical_products"] += 1
+            continue
+        if f == BIT_FLAG:
+            tot["linear_phases"] += 1
+            tot["critical_linear"] += 1
             continue
         for k in tot:
             tot[k] += st[f][k]

@@ -15,6 +15,8 @@ recovery, both signature groups) has a hand-written CUDA C++ kernel
   K5 pow_fixed_fp2     <- pallas_field._pow2_call         (csrc/pow2.cu)
   K6 scalar_mul_bits   <- pallas_field._ladder_var_call   (csrc/ladder_var.cu,
                                                            G1 and G2)
+     (K6 runs a thread group per lane over fp12prog.py's point programs,
+      one operation sequence for every scalar; csrc/group.cuh)
   K7 sum_tiles         <- pallas_field._sum_call          (csrc/sum.cu,
                                                            G1 and G2)
   K8 scalar_mul_glv_mixed <- pallas_field._ladder_glv_mixed_call
@@ -187,9 +189,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.drand_ladder_g2.argtypes = [vp, vp, vp, i32, i64, vp]
     lib.drand_sum_g2.argtypes = [vp, vp, i64, vp]
     lib.drand_glv_g2.argtypes = [vp, vp, vp, i32, i64, vp]
-    lib.drand_ladder_var_g1.argtypes = [vp, vp, vp, i32, i64, vp]
-    lib.drand_ladder_var_g2.argtypes = [vp, vp, vp, i32, i64, vp]
-    lib.drand_group_layout.argtypes = [i32, vp]
+    lib.drand_ladder_var_g1.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32,
+                                        i64, vp]
+    lib.drand_ladder_var_g2.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32,
+                                        i64, vp]
+    lib.drand_group_layout.argtypes = [i32, i32, vp]
     for fn in (lib.drand_pow, lib.drand_ladder_g1, lib.drand_miller,
                lib.drand_finalexp, lib.drand_sum_g1, lib.drand_glv_g1,
                lib.drand_pow2, lib.drand_ladder_g2, lib.drand_sum_g2,
@@ -271,8 +275,8 @@ def const_bundle(device: str) -> torch.Tensor:
 
 @lru_cache(maxsize=None)
 def program_tensor(kind: str, device: str) -> torch.Tensor:
-    """fp12prog's int32 program table for K3 ("miller") or K4
-    ("finalexp") on `device`."""
+    """fp12prog's int32 program table for K3 ("miller"), K4 ("finalexp")
+    or K6 ("ladder_g1", "ladder_g2") on `device`."""
     return torch.from_numpy(FP.program(kind)).to(device)
 
 
@@ -294,10 +298,11 @@ def _group_launch(fn, kind, x, out, dev, name):
 
 
 def group_layout(kind):
-    """(lanes a block, dynamic shared-memory bytes a block) of K3's or K4's
-    launch, as csrc/group.cuh computes them for the program's slots."""
+    """(lanes a block, dynamic shared-memory bytes a block) of a K3, K4 or
+    K6 launch, as csrc/group.cuh computes them for the program's slots and
+    width."""
     out = (ctypes.c_int32 * 2)()
-    _lib().drand_group_layout(FP.compiled(kind)[1], out)
+    _lib().drand_group_layout(FP.compiled(kind)[1], FP.WIDTH[kind], out)
     return out[0], out[1]
 
 
@@ -408,8 +413,10 @@ def scalar_mul_bits_plain(p, bits):
 
 def scalar_mul_bits(p, bits):
     """k_i * P_i for per-lane scalars: a Jacobian point of either curve
-    with batch shape S and MSB-first bits of shape (nbits,) + S.  Any batch
-    shape is flattened to lanes (pallas_field.scalar_mul_bits)."""
+    with batch shape S and MSB-first bits of shape (nbits,) + S, nbits >=
+    1.  Any batch shape is flattened to lanes
+    (pallas_field.scalar_mul_bits).  The kernel runs the same operations
+    whatever the bits."""
     leaves = _flat(p)
     if not _on_card(leaves[0]):
         return scalar_mul_bits_plain(p, bits)
@@ -421,10 +428,14 @@ def scalar_mul_bits(p, bits):
     bt = bits.reshape(nbits, n).to(device=x.device,
                                    dtype=torch.int32).contiguous()
     out = torch.empty_like(x)
+    kind = "ladder_g2" if g2 else "ladder_g1"
     fn = _lib().drand_ladder_var_g2 if g2 else _lib().drand_ladder_var_g1
     name = "scalar_mul_bits_g2" if g2 else "scalar_mul_bits"
-    _check(fn(x.data_ptr(), out.data_ptr(), bt.data_ptr(), nbits, n,
-              _stream(x.device)), name)
+    dev = str(x.device)
+    _check(fn(x.data_ptr(), out.data_ptr(), const_bundle(dev).data_ptr(),
+              program_tensor(kind, dev).data_ptr(), FP.compiled(kind)[1],
+              FP.WIDTH[kind], bt.data_ptr(), nbits, n, _stream(x.device)),
+           name)
     _count(name, nbits, n)
     return _unflat(from_words(out, shape), g2)
 

@@ -23,41 +23,48 @@ from drand_tpu_torch.ops import tower as T
 
 RNG = random.Random(20261017)
 SHORT_BITS = [1, 0, 1, 1]
+CONSTS = [FP.CONST_VALUES.get(r, 0) for r in range(30)]
+MASK = (1 << 384) - 1          # a flag's 12 words all ones
+
+
+def run_phases(phases, s, nslots):
+    """One fragment on the slot values s (field values, not Montgomery), in
+    place, with csrc/group.cuh's semantics: every op of a phase reads its
+    operands (a select its flag too) before any op writes."""
+    rd = lambda i: s[i] if i < nslots else CONSTS[i - nslots]
+    for is_prod, ops in phases:
+        new = []
+        for k, d, a, b in ops:
+            x, y = rd(a), rd(b)
+            if is_prod:
+                r = x * y % P
+            elif k & FP.SEL:
+                f = s[k >> FP.FLAG_SHIFT]
+                r = (x & f) | (y & (MASK ^ f))
+            elif k & FP.EQ:
+                r = MASK if x == y else 0
+            else:
+                r = (x + y if k & 3 == FP.ADD else x - y) % P
+                if k & FP.HALVE:
+                    r = r * FP.CONST_VALUES[FP.HALF_ROW] % P
+            new.append((d, r))
+        for d, r in new:
+            s[d] = r
 
 
 def simulate(kind, lanes_in, xbits=None):
-    """Run a program along its schedule on Python ints (field values, not
-    Montgomery) with csrc/group.cuh's semantics (every op of a phase reads
-    before any writes): one list of input values per lane (inputs at slot
-    0) -> the 12 output leaves per lane."""
+    """Run a program along its schedule on Python ints: one list of input
+    values per lane (inputs at slot 0) -> the 12 output leaves per lane."""
     frags, nslots = FP.compiled(kind)
-    consts = [FP.CONST_VALUES.get(r, 0) for r in range(30)]
     inv_in, inv_out = FP.KINDS[kind][2]
     outs = []
     for vals in lanes_in:
         s = list(vals) + [0] * (nslots - len(vals))
-        rd = lambda i: s[i] if i < nslots else consts[i - nslots]
-
-        def run(f):
-            for is_prod, ops in frags[f]:
-                new = []
-                for k, d, a, b in ops:
-                    x, y = rd(a), rd(b)
-                    if is_prod:
-                        r = x * y % P
-                    else:
-                        r = (x + y if k & 3 == FP.ADD else x - y) % P
-                        if k & FP.HALVE:
-                            r = r * FP.CONST_VALUES[FP.HALF_ROW] % P
-                    new.append((d, r))
-                for d, r in new:
-                    s[d] = r
-
         for f in FP.schedule(kind, xbits):
             if f == FP.INVERT:
                 s[inv_out] = fp_inv(s[inv_in]) if s[inv_in] else 0
             else:
-                run(f)
+                run_phases(frags[f], s, nslots)
         outs.append(s[:12])
     return outs
 
@@ -84,6 +91,9 @@ def test_check_phases_rejects_a_race():
         FP._check_phases([(False, [(FP.ADD, 5, 1, 2), (FP.SUB, 6, 5, 3)])])
     with pytest.raises(AssertionError):
         FP._check_phases([(True, [(FP.PROD, 5, 1, 2), (FP.PROD, 5, 3, 4)])])
+    with pytest.raises(AssertionError):            # a select's flag slot
+        FP._check_phases([(False, [(FP.EQ, 5, 1, 2),
+                                   (FP.SEL | 5 << FP.FLAG_SHIFT, 6, 3, 4)])])
 
 
 def test_fragment_shapes():

@@ -190,14 +190,17 @@ def test_miller_kernel_add_steps(kernel_path, monkeypatch, n):
     assert all(not torch.equal(a, b) for a, b in zip(outs[0], outs[3]))
 
 
-@pytest.mark.parametrize("kind,tail", [("miller", 7), ("finalexp", 5)])
+@pytest.mark.parametrize("kind,tail", [("miller", 7), ("finalexp", 5),
+                                       ("ladder_g1", 5), ("ladder_g2", 5)])
 def test_group_layout(kernel_path, kind, tail):
-    """The layout csrc/group.cuh gives a K3 / K4 launch: at least one lane
-    a block, the lanes' slots and the constants under 48 KB (no opt-in),
-    and the tail widths the tests above run are no multiple of it."""
+    """The layout csrc/group.cuh gives a K3 / K4 / K6 launch: at least one
+    lane a block, whole warps of lanes, the lanes' slots and the constants
+    under 48 KB (no opt-in), and the tail widths the tests run are no
+    multiple of it."""
     lanes, smem = K.group_layout(kind)
     slots = FP.compiled(kind)[1]
     assert lanes >= 1 and tail % lanes
+    assert lanes * FP.WIDTH[kind] % 32 == 0
     assert lanes * slots * 48 < smem <= 48 * 1024
 
 
@@ -416,7 +419,8 @@ def _ladder_var_bits(nbits, lanes, zero_lane):
 def test_ladder_var_kernel_matches_plain(kernel_path):
     """G1 at 130 bits (the GLV recovery width) over a (2, 4) batch: the
     order-3 point, members, an outsider of G1, infinity, the generator and
-    an all-zero scalar; the wrapper flattens the batch to 8 lanes."""
+    an all-zero scalar; the wrapper flattens the batch to 8 lanes, which
+    the group kernel runs as 8 thread groups."""
     x, y, z = _points()                  # 3 members, outsider, inf, gen
     t3 = DC.encode_g1_points([(0, 2)])
     pts = tuple(torch.cat([a, b, b[:1]]).reshape(2, 4, 24)
@@ -445,3 +449,52 @@ def test_ladder_var_g2_kernel_matches_plain(kernel_path):
     _same(K._flat(got), K._flat(K.scalar_mul_bits_plain(pts, bits)))
     inf = DC.G2.is_infinity(got).tolist()
     assert inf[3] and inf[5] and not any(inf[i] for i in (1, 4))
+
+
+def _scalar_bits(ks, nbits):
+    return torch.from_numpy(DC.msb_bits(ks, nbits))
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_ladder_var_kernel_16_bits_5_lanes(kernel_path, g2):
+    """The DKG's Horner width, 16 bits, over 5 lanes (no multiple of a
+    block's lanes): infinity, the generator, an outsider, two members;
+    scalars random, 0, 2^16 - 1."""
+    if g2:
+        g = _g2_points()
+        pts = DC.encode_g2_points([g[i] for i in (3, 4, 2, 0, 1)])
+    else:
+        pts = tuple(c[[4, 5, 3, 0, 1]] for c in _points())
+    bits = _scalar_bits([RNG.getrandbits(16), 0, (1 << 16) - 1,
+                         RNG.getrandbits(16), 1], 16)
+    got = K.scalar_mul_bits(pts, bits)
+    name = "scalar_mul_bits_g2" if g2 else "scalar_mul_bits"
+    assert K.SHAPES == {(name, 16, 5): 1}
+    _same(K._flat(got), K._flat(K.scalar_mul_bits_plain(pts, bits)))
+
+
+def test_ladder_var_kernel_256_bits(kernel_path):
+    """G1 at signing's 256 bits: members with the scalars r (the last
+    step's add meets P == -Q: infinity) and r + 2 (P == Q: the doubling),
+    a random scalar, the generator with 0, and an infinite point."""
+    x, y, z = _points()                  # 3 members, outsider, inf, gen
+    pts = tuple(c[[0, 1, 2, 5, 4]] for c in (x, y, z))
+    bits = _scalar_bits([R, R + 2, RNG.getrandbits(256), 0,
+                         RNG.getrandbits(256)], 256)
+    got = K.scalar_mul_bits(pts, bits)
+    assert K.SHAPES == {("scalar_mul_bits", 256, 5): 1}
+    _same(got, K.scalar_mul_bits_plain(pts, bits))
+    inf = DC.G1.is_infinity(got).tolist()
+    assert inf == [True, False, False, True, True]
+
+
+def test_ladder_var_g2_kernel_256_bits(kernel_path):
+    """G2 at signing's 256 bits: members with the scalars r (P == -Q in the
+    last step: infinity) and r + 2 (P == Q), and the generator with 0."""
+    g = _g2_points()
+    pts = DC.encode_g2_points([g[0], g[1], g[4]])
+    bits = _scalar_bits([R, R + 2, 0], 256)
+    got = K.scalar_mul_bits(pts, bits)
+    assert K.SHAPES == {("scalar_mul_bits_g2", 256, 3): 1}
+    _same(K._flat(got), K._flat(K.scalar_mul_bits_plain(pts, bits)))
+    assert DC.G2.is_infinity(got).tolist() == [True, False, True]
