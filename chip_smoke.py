@@ -41,7 +41,8 @@ Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
 timed; K3 and K4 (a warp a pairing lane) also at tail widths with a zero
 and a one lane, K6 (a thread group a ladder lane) at 16 bits over 5 lanes
-on both curves, each group kernel's shapes with their dependent chain
+on both curves, K2 (a thread group a ladder lane) at each width it
+compiles, each group kernel's shapes with their dependent chain
 (ops/fp12prog.py), and the narrow K3 / K4 launches split into per-step
 latencies by rerunning them with other loop bits.  Each phase prints one
 JSON line; the line before the last is the per-kernel table ({"kernels":
@@ -225,11 +226,6 @@ def need_ladder(k):
             + (_hw(k) - 1) * _imad(11, 5))
 
 
-def code_ladder(k):
-    # from infinity; g1_double 7 products, g1_add 23 (its doubling included)
-    return _imad(7 * k.bit_length() + 23 * _hw(k))
-
-
 FP12_MUL, FP12_SQR, CYCLO_SQR, FP6_SQR = 54, 36, 18, 12
 # kernels.dbl_step: four Fp2 squarings and Rx Ry, then hh^2, t2^2, g m and
 # t0 t4; its products by b2 = 4 (1 + u) and by 1/2 are adds and a halving
@@ -247,11 +243,12 @@ def need_miller(xbits):
 
 
 def code_group(counts):
-    """K3 / K4 / K6 (csrc/miller.cu, finalexp.cu, ladder_var.cu): what
-    fp12prog's program does for one lane (fp12prog.lane_counts), every
-    product at 588; its linear and flag ops, and K4's binary-gcd Fp
-    inverse, do no multiply-adds.  K6 runs every step's products whatever
-    the bit."""
+    """K2 / K3 / K4 / K6 (csrc/ladder.cu, miller.cu, finalexp.cu,
+    ladder_var.cu): what fp12prog's program does for one lane
+    (fp12prog.lane_counts), every product at 588; its linear and flag ops,
+    and K4's binary-gcd Fp inverse, do no multiply-adds.  K6 runs every
+    step's products whatever the bit; K2 an add only after a one bit, its
+    embedded doubling included."""
     return _imad(counts["products"])
 
 
@@ -346,10 +343,6 @@ def need_ladder_g2(k):
                  + (_hw(k) - 1) * G2_ADD_NEED)
 
 
-def code_ladder_g2(k):
-    return _imad(k.bit_length() * G2_DBL_CODE + _hw(k) * G2_ADD_CODE)
-
-
 def need_glv_g2(b0, b1):
     """K8-G2 multiply-adds over all lanes, counted as need_glv counts."""
     nz = (b0 | b1).bool()
@@ -405,12 +398,10 @@ def ptxas_summary(log):
 
 
 def entry_stats(regs, src, *needles):
-    """The ptxas statistics of the entry kernel of `src` whose mangled name
-    holds every needle."""
-    for name, st in regs.get(src, {}).items():
-        if all(nd in name for nd in needles):
-            return dict(st, entry=name)
-    return None
+    """The ptxas statistics of every entry kernel of `src` whose mangled
+    name holds every needle (one entry, or K2-G1's one a width)."""
+    return [dict(st, entry=name) for name, st in regs.get(src, {}).items()
+            if all(nd in name for nd in needles)]
 
 
 # ---------------------------------------------------------------------------
@@ -567,15 +558,23 @@ def main():
     rlc_enc, _ = verifier._encode(good_sigs, verifier._messages(rounds), pad)
     torch.cuda.synchronize()
     rlc_pack_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    again = verifier._rlc_ok(rlc_enc, n)
-    torch.cuda.synchronize()
-    rlc_pass_s = time.perf_counter() - t0
+    # the device pass three times (host clock, a sync each): its median and
+    # spread, against the differences between runs of one call
+    pass_runs, again = [], True
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again &= bool(verifier._rlc_ok(rlc_enc, n))
+        torch.cuda.synchronize()
+        pass_runs.append(time.perf_counter() - t0)
+    rlc_pass_s = float(np.median(pass_runs))
     emit({"phase": "verify_batch_rlc", "rounds": n,
           "all_valid": bool(got.all()), "passes": passes, "wall_s": rlc_wall,
           "rounds_per_s": n / rlc_wall,
           "second_run": {"host_pack_s": rlc_pack_s,
                          "device_pass_s": rlc_pass_s,
+                         "device_pass_runs_s": pass_runs,
+                         "device_pass_spread_s": max(pass_runs)
+                         - min(pass_runs),
                          "rounds_per_s": n / (rlc_pack_s + rlc_pass_s)},
           "sign_setup_s": sign_s, "launches": rlc_launches,
           "shapes": shape_list(rlc_shapes), "device": name,
@@ -1015,6 +1014,16 @@ def main():
             times.append(a.elapsed_time(b))
         return float(np.median(times))
 
+    def at_width(kind, width, fn):
+        """fn() with K2 launched at `width` threads a lane, whatever its
+        lane count: kernels.K2_FILL_LANES moved below or above it."""
+        saved = K.K2_FILL_LANES
+        K.K2_FILL_LANES = 1 if width == FP.FILL_WIDTH.get(kind) else 1 << 62
+        try:
+            return fn()
+        finally:
+            K.K2_FILL_LANES = saved
+
     def plain_run(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1037,20 +1046,29 @@ def main():
                 words * lanes * WORD_BYTES / HBM_BYTES_PER_S * 1e3)
 
     xbits = K.XLOOP_BITS
-    # K3 / K4 launch a warp a lane, K6 a thread group a lane, with the
-    # lane's slots in dynamic shared memory (csrc/group.cuh): record that
-    # layout
-    group_layout = {}
-    for kname, kind in (("miller_loop", "miller"),
-                        ("final_exponentiation", "finalexp"),
-                        ("scalar_mul_bits", "ladder_g1"),
-                        ("scalar_mul_bits_g2", "ladder_g2")):
-        lanes_pb, smem = K.group_layout(kind)
-        group_layout[kname] = {
-            "threads_per_lane": FP.WIDTH[kind],
-            "slots_per_lane": FP.compiled(kind)[1],
-            "lanes_per_block": lanes_pb,
-            "dynamic_smem_bytes_per_block": smem}
+    # K3 / K4 launch a warp a lane, K6 and K2 a thread group a lane, with
+    # the lane's slots in dynamic shared memory (csrc/group.cuh): record
+    # that layout (K2 at each width it compiles)
+    k2_kind = {"scalar_mul_fixed": "fixed_g1",
+               "scalar_mul_fixed_g2": "fixed_g2"}
+
+    def k2_widths(kind):
+        return sorted({FP.WIDTH[kind], FP.FILL_WIDTH.get(kind,
+                                                         FP.WIDTH[kind])})
+
+    def layout(kind, width):
+        lanes_pb, smem = K.group_layout(kind, width)
+        return {"threads_per_lane": width,
+                "slots_per_lane": FP.compiled(kind)[1],
+                "lanes_per_block": lanes_pb,
+                "dynamic_smem_bytes_per_block": smem}
+    group_layout = {kname: layout(kind, FP.WIDTH[kind]) for kname, kind in (
+        ("miller_loop", "miller"), ("final_exponentiation", "finalexp"),
+        ("scalar_mul_bits", "ladder_g1"), ("scalar_mul_bits_g2", "ladder_g2"))}
+    for kname, kind in k2_kind.items():
+        group_layout[kname] = {"widths": [layout(kind, w)
+                                          for w in k2_widths(kind)],
+                               "fill_width_from_lanes": K.K2_FILL_LANES}
     # (kernel, source, TPU kernel, [(label, exponent/scalar/bits, lanes,
     #  kernel call, plain call, compare, (need, code) multiply-adds per lane,
     #  words per lane)]) at the shapes the paths give each kernel; the
@@ -1088,6 +1106,20 @@ def main():
         return {"code_products_per_lane": c["products"],
                 "critical_products": c["critical_products"],
                 "critical_linear_steps": c["critical_linear"]}
+
+    def k2_shape(kname, key, lanes, pts, label):
+        """A K2 shape: need for k, code and chain from the program's own
+        counts for k's bits at the width the wrapper picks for `lanes`
+        (each compiled width is timed below)."""
+        kind = k2_kind[kname]
+        g2k = kind == "fixed_g2"
+        w = K.fixed_width(kind, lanes)
+        counts = FP.lane_counts(kind, L.exp_bits(key), w)
+        return (label, key, lanes, lambda: K.scalar_mul_fixed(pts, key),
+                lambda: K.scalar_mul_fixed_plain(pts, key), err_flat,
+                (need_ladder_g2(key) if g2k else need_ladder(key),
+                 code_group(counts)), 12 if g2k else 6,
+                dict(chain(kind, counts), threads_per_lane=w))
     leaves = T.fp12_leaves
     e_sqrt, e_inv = (P - 3) // 4, P - 2
     # K8 at 2N: the tables of [S, H] lanes as g1_glv_msm_terms builds them,
@@ -1162,13 +1194,9 @@ def main():
             ("p-2 at 1 lane", e_inv, 1, lambda: K.pow_fixed(x1, e_inv),
              lambda: K.pow_fixed_plain(x1, e_inv), lambda a, b: err([a], [b]),
              (need_pow(e_inv), code_pow(e_inv)), 2)]),
-        ("scalar_mul_fixed", "ladder.cu", 635, "K2 G1", ("k_ladder", "G1J"), [
-            ("|x| at N", -X, pad, lambda: K.scalar_mul_fixed(pj, -X),
-             lambda: K.scalar_mul_fixed_plain(pj, -X), err,
-             (need_ladder(-X), code_ladder(-X)), 6),
-            ("1-x at N", 1 - X, pad, lambda: K.scalar_mul_fixed(pj, 1 - X),
-             lambda: K.scalar_mul_fixed_plain(pj, 1 - X), err,
-             (need_ladder(1 - X), code_ladder(1 - X)), 6)]),
+        ("scalar_mul_fixed", "ladder.cu", 635, "K2 G1", ("k_ladder_g1",), [
+            k2_shape("scalar_mul_fixed", -X, pad, pj, "|x| at N"),
+            k2_shape("scalar_mul_fixed", 1 - X, pad, pj, "1-x at N")]),
         ("miller_loop", "miller.cu", 1058, "K3", ("k_miller",), [
             ("2N pairs", None, 2 * pad, lambda: K.miller_loop(mx, my, mq),
              lambda: K.miller_loop_plain(mx, my, mq),
@@ -1218,11 +1246,8 @@ def main():
              lambda: K.pow_fixed_fp2(x3n2, E2),
              lambda: K.pow_fixed_fp2_plain(x3n2, E2), err_flat,
              (need_pow2(E2), code_pow2(E2)), 4)]),
-        ("scalar_mul_fixed_g2", "ladder.cu", 635, "K2 G2",
-         ("k_ladder", "G2J"), [
-            ("|x| at N", -X, pad, lambda: K.scalar_mul_fixed(pj2, -X),
-             lambda: K.scalar_mul_fixed_plain(pj2, -X), err_flat,
-             (need_ladder_g2(-X), code_ladder_g2(-X)), 12)]),
+        ("scalar_mul_fixed_g2", "ladder.cu", 635, "K2 G2", ("k_ladder_g2",), [
+            k2_shape("scalar_mul_fixed_g2", -X, pad, pj2, "|x| at N")]),
         ("sum_tiles_g2", "sum.cu", 1187, "K7 G2", ("k_sum_g2",), sum2_shapes),
         ("scalar_mul_glv_mixed_g2", "glv.cu", 1298, "K8 G2", ("k_glv_g2",), [
             ("32 bits at 4N", 32, 4 * pad,
@@ -1310,12 +1335,8 @@ def main():
                     lambda: K.pow_fixed_fp2_plain(x, key), err_flat,
                     (need_pow2(key), code_pow2(key)), 4)
         if kname.startswith("scalar_mul_fixed"):
-            pts = spread(special[g2k], lanes)
-            im = ((need_ladder_g2(key), code_ladder_g2(key)) if g2k
-                  else (need_ladder(key), code_ladder(key)))
-            return (label, key, lanes, lambda: K.scalar_mul_fixed(pts, key),
-                    lambda: K.scalar_mul_fixed_plain(pts, key), err_flat,
-                    im, 12 if g2k else 6)
+            return k2_shape(kname, key, lanes, spread(special[g2k], lanes),
+                            label)
         if kname == "miller_loop":
             px, py = rand_fp_dev(lanes), rand_fp_dev(lanes)
             q = ((rand_fp_dev(lanes), rand_fp_dev(lanes)),
@@ -1413,6 +1434,16 @@ def main():
             checks[f"{kname} {label}"] = e
             max_err = max(max_err, e)
             k_ms = timed(kfn, args.reps)
+            if kname in k2_kind:          # K2: each compiled width, checked
+                by_width = {}
+                kind = k2_kind[kname]
+                for w in k2_widths(kind):
+                    e = cmp(at_width(kind, w, kfn), p_out)
+                    checks[f"{kname} {label} at {w} threads"] = e
+                    max_err = max(max_err, e)
+                    by_width[w] = timed(lambda: at_width(kind, w, kfn),
+                                        args.reps)
+                extra = [dict(extra[0], ms_at_threads_per_lane=by_width)]
             o_ms, b_ms = bound_ms(imads[0], lanes, words)
             c_ms = bound_ms(imads[1], lanes, words)[0]
             ms += count * k_ms
@@ -1444,7 +1475,8 @@ def main():
                          f"RLC runs and exact passes at {n} rounds of both "
                          f"signature groups, the threshold phases at {nrp} "
                          f"rounds x {THRESHOLD} partials",
-            "per_shape": detail, "ptxas": entry_stats(regs, src, *needles),
+            "per_shape": detail,
+            "ptxas": entry_stats(regs, src, *needles),
             "group": group_layout.get(kname),
             "device": name, "nvidia_smi": smi_line})
     emit({"phase": "kernels_vs_plain", "tolerance": "exact (integer "
@@ -1553,7 +1585,34 @@ def main():
                 "fragments": {k: FP.frag_stats(k)
                               for k in ("miller", "finalexp")}}
 
+    # One group phase (csrc/group.cuh) on its own: K2-G1's kernel at 8
+    # threads a lane runs a synthetic program of 512 phases of one add, or
+    # of one product, on 1 and on 14,336 lanes; the time a phase.  Not
+    # main-path launches.
+    def phase_us():
+        nph, nslots = 512, 16
+        out_us = {}
+        for name, is_prod, kind in (("linear", False, FP.ADD),
+                                    ("product", True, FP.PROD)):
+            tab = ([nslots, 1, nph, nph, 0, 0, 0, nph]
+                   + [v for i in range(nph) for v in (i, 1, int(is_prod))]
+                   + [kind, 3, 3, 4] * nph)
+            prog = torch.tensor(tab, dtype=torch.int32, device=dev)
+            sched = torch.zeros(1, dtype=torch.int32, device=dev)
+            for lanes in (1, 14336):
+                x = torch.zeros((3, 12, lanes), dtype=torch.int32, device=dev)
+                o = torch.empty_like(x)
+                fn = lambda: K._check(K._lib().drand_ladder_g1(
+                    x.data_ptr(), o.data_ptr(),
+                    K.const_bundle(str(dev)).data_ptr(), prog.data_ptr(),
+                    nslots, FP.WIDTH["fixed_g1"], sched.data_ptr(), 1, lanes,
+                    K._stream(dev)), "phase_us")
+                out_us[f"{name} at {lanes} lanes"] = \
+                    timed(fn, args.reps) / nph * 1e3
+        return out_us
+
     emit({"phase": "where_the_time_goes", "rounds": n,
+          "group_phase_us": phase_us(),
           "k3_k4_narrow_launches": chain_split(),
           "rlc_stages_ms": stages, "g2_rlc_stages_ms": st2,
           "verify_batch_rlc": split(rlc_pack_s, rlc_pass_s,

@@ -1,7 +1,7 @@
 // BLS12-381 Fp and Fp2 arithmetic and the G1 and G2 group laws for the
 // port's Hopper kernels.
 //
-// In the point kernels K2, K7 and K8 one thread owns one lane; K3, K4 and
+// In the point kernels K7 and K8 one thread owns one lane; K2, K3, K4 and
 // K6 run a thread group a lane over this header's Fp product and sum
 // (group.cuh).  An
 // Fp element is 12 x 32-bit little-endian words in Montgomery form with
@@ -675,10 +675,6 @@ DI void store_point(uint32_t* base, int c0, const G2J& p, int64_t B, int64_t lan
   store_fp2(base, c0 + 4, p.Z, B, lane);
 }
 
-DI void point_infinity(G1J& r) { g1_infinity(r); }
-DI void point_infinity(G2J& r) { g2_infinity(r); }
-DI void point_double(G1J& r, const G1J& p) { g1_double(r, p); }
-DI void point_double(G2J& r, const G2J& p) { g2_double(r, p); }
 DI void point_add(G1J& r, const G1J& p, const G1J& q) { g1_add(r, p, q); }
 DI void point_add(G2J& r, const G2J& p, const G2J& q) { g2_add(r, p, q); }
 

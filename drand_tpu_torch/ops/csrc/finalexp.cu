@@ -32,7 +32,7 @@ __global__ void __launch_bounds__(GROUP_THREADS)
     k_finalexp(const uint32_t* in, uint32_t* out, const uint32_t* consts,
              const int32_t* prog, const int32_t* sched, int nsched,
              int64_t B) {
-  extern __shared__ Fp smem[];
+  extern __shared__ __align__(16) Fp smem[];
   const GroupProg g = group_prog(prog);
   int64_t idx;
   Fp* lane = group_enter<GROUP>(smem, consts, g.nslots, B, &idx);

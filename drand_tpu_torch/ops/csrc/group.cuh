@@ -1,21 +1,23 @@
 // A thread group per lane: the interpreter of the Fp programs that
-// drand_tpu_torch/ops/fp12prog.py writes for K3 (miller.cu), K4
-// (finalexp.cu) and K6 (ladder_var.cu).
+// drand_tpu_torch/ops/fp12prog.py writes for K2 (ladder.cu), K3
+// (miller.cu), K4 (finalexp.cu) and K6 (ladder_var.cu).
 //
 // A group of W threads owns one lane: a warp (W = GROUP) for K3 and K4, a
-// quarter (G1) or half (G2) a warp for K6.  The lane's field values sit in
-// shared memory, one Fp per slot, and its work is a list of phases: in a
-// product phase every op is a Montgomery product (fp_mul), in a linear
-// phase every op is a +- b, halved mod p when asked, or one of K6's flag
-// ops: an equality flag (every word all ones or all zeros) and a word-wise
-// select by such a flag, both branchless.  The ops of a phase are independent;
-// thread t of the group runs ops t, t + W, ... of it, each in registers,
-// and the warp synchronises (__syncwarp) before the next phase.  So the
-// lane's dependent chain is one product per product phase of at most W
-// ops, and no Fp12 value or point lives in local memory.  Every branch is
-// on the program (phase kind, op kind, loop bits of |x|) and so uniform
-// across the warp, whatever the lane's data: all groups of a warp run the
-// same phases, so a sub-warp group may synchronise the whole warp.
+// quarter (G1) or half (G2) a warp for K6, a quarter warp for K2 (2
+// threads on G1 where the lanes fill the card).  The lane's field values
+// sit in shared memory, one Fp per slot, and its work is a list of
+// phases: in a product phase every op is a Montgomery product (fp_mul), in
+// a linear phase every op is a +- b, halved mod p when asked, or one of
+// the point programs' flag ops: an equality flag (every word all ones or
+// all zeros) and a word-wise select by such a flag, both branchless.  The
+// ops of a phase are independent; thread t of the group runs ops t, t + W,
+// ... of it, each in registers, and the warp synchronises (__syncwarp)
+// before the next phase.  So the lane's dependent chain is one product per
+// product phase of at most W ops, and no Fp12 value or point lives in
+// local memory.  Every branch is on the program (phase kind, op kind, the
+// loop bits of |x| or of K2's public scalar) and so uniform across the
+// warp, whatever the lane's data: all groups of a warp run the same
+// phases, so a sub-warp group may synchronise the whole warp.
 //
 // group_phase<W>(body) is the one place the group runs: on the card each
 // thread calls body(its index in the group) and the warp synchronises; on
@@ -93,24 +95,27 @@ DI void fp_half(Fp& x) {
 }
 
 // r = (a + b) or (a - b), canonical, halved mod p with OP_HALVE.  Add and
-// sub share one instruction stream (a + (p - b) for sub), so a linear
-// phase mixing them does not diverge.
+// sub share one instruction stream, so a linear phase mixing them does not
+// diverge, and two chains of 12 carries: s = a + b, or a - b as a + ~b + 1
+// (carry out: a >= b); then t = s - p for add (carry out: s >= p), s + p
+// for sub; r = t where that carry says so.
 DI void fp_lin(Fp& r, const Fp& a, const Fp& b, int kind) {
-  const bool sub = (kind & 3) == OP_SUB;
-  uint32_t nb[12], s[12];
-  uint64_t bw = 0;
+  const uint32_t m = 0u - (uint32_t)((kind & 3) == OP_SUB);
+  uint32_t s[12], t[12];
+  uint64_t c = m & 1u;
   UNROLL for (int i = 0; i < 12; i++) {
-    uint64_t t = (uint64_t)kP[i] - b.v[i] - bw;
-    nb[i] = (uint32_t)t;
-    bw = t >> 63;
-  }
-  uint64_t c = 0;
-  UNROLL for (int i = 0; i < 12; i++) {
-    c += (uint64_t)a.v[i] + (sub ? nb[i] : b.v[i]);
+    c += (uint64_t)a.v[i] + (b.v[i] ^ m);
     s[i] = (uint32_t)c;
     c >>= 32;
   }
-  fp_reduce_once(r, s);  // a + b < 2p; a + (p - b) <= 2p - 1
+  uint64_t d = ~m & 1u;  // s + (~p + 1) = s - p for add; s + p for sub
+  UNROLL for (int i = 0; i < 12; i++) {
+    d += (uint64_t)s[i] + (kP[i] ^ ~m);
+    t[i] = (uint32_t)d;
+    d >>= 32;
+  }
+  const bool use_t = m ? c == 0 : d != 0;
+  UNROLL for (int i = 0; i < 12; i++) r.v[i] = use_t ? t[i] : s[i];
   if (kind & OP_HALVE) fp_half(r);
 }
 
@@ -128,8 +133,40 @@ DI void flag_sel(Fp& r, const Fp& f, const Fp& a, const Fp& b) {
     r.v[i] = (a.v[i] & f.v[i]) | (b.v[i] & ~f.v[i]);
 }
 
+// A slot in shared memory: on the card three 16-byte accesses (slots are
+// 48 bytes from a 16-byte aligned base, group_enter), where a struct copy
+// took twelve 4-byte ones; a plain copy on the host.
+DI Fp slot_load(const Fp* p) {
+#ifdef __CUDACC__
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  Fp r;
+  UNROLL for (int i = 0; i < 3; i++) {
+    const uint4 x = q[i];
+    r.v[4 * i] = x.x;
+    r.v[4 * i + 1] = x.y;
+    r.v[4 * i + 2] = x.z;
+    r.v[4 * i + 3] = x.w;
+  }
+  return r;
+#else
+  return *p;
+#endif
+}
+
+DI void slot_store(Fp* p, const Fp& a) {
+#ifdef __CUDACC__
+  uint4* q = reinterpret_cast<uint4*>(p);
+  UNROLL for (int i = 0; i < 3; i++)
+    q[i] = make_uint4(a.v[4 * i], a.v[4 * i + 1], a.v[4 * i + 2],
+                      a.v[4 * i + 3]);
+#else
+  *p = a;
+#endif
+}
+
 // Run fragment f of the program on one lane (slots `lane`, constants `cs`).
-// An op reads all its operands before it writes.
+// An op reads all its operands before it writes; an operand is a lane
+// slot or a constant row, picked by address so that one load serves both.
 template <int W>
 DI void run_frag(const GroupProg& g, Fp* lane, const Fp* cs, int f) {
   const int p0 = g.frags[2 * f], np = g.frags[2 * f + 1];
@@ -141,15 +178,17 @@ DI void run_frag(const GroupProg& g, Fp* lane, const Fp* cs, int f) {
       for (int k = t; k < n; k += W) {
         const int32_t* op = g.ops + 4 * (o0 + k);
         const int kind = op[0], sa = op[2], sb = op[3];
-        const Fp a = sa < g.nslots ? lane[sa] : cs[sa - g.nslots];
-        const Fp b = sb < g.nslots ? lane[sb] : cs[sb - g.nslots];
+        const Fp a = slot_load(sa < g.nslots ? lane + sa
+                                             : cs + (sa - g.nslots));
+        const Fp b = slot_load(sb < g.nslots ? lane + sb
+                                             : cs + (sb - g.nslots));
         Fp r;
         if (prod) fp_mul(r, a, b);
         else if (kind & OP_SEL)
-          flag_sel(r, lane[kind >> OP_FLAG_SHIFT], a, b);
+          flag_sel(r, slot_load(lane + (kind >> OP_FLAG_SHIFT)), a, b);
         else if (kind & OP_EQ) flag_eq(r, a, b);
         else fp_lin(r, a, b, kind);
-        lane[op[1]] = r;
+        slot_store(lane + op[1], r);
       }
     });
   }
@@ -324,7 +363,8 @@ extern "C" int drand_group_layout(int nslots, int width, int32_t* out);
     return (int)cudaGetLastError();                                          \
   } while (0)
 
-// The block's constant slots at smem, this group's lane slots after them;
+// The block's constant slots at smem (16-byte aligned: the kernels declare
+// it so, and every slot is 48 bytes), this group's lane slots after them;
 // nullptr for a warp whose first lane is past the last (once the block has
 // loaded the constants together).  The other groups of a live warp run:
 // past the last lane, a group repeats lane B - 1 and stores nothing

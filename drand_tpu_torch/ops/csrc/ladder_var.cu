@@ -70,7 +70,7 @@ template <int W, int NC>
 DI void ladder_var_block(const uint32_t* in, uint32_t* out,
                          const uint32_t* consts, const int32_t* prog,
                          const int32_t* bits, int nbits, int64_t B) {
-  extern __shared__ Fp smem[];
+  extern __shared__ __align__(16) Fp smem[];
   const GroupProg g = group_prog(prog);
   int64_t idx;
   Fp* lane = group_enter<W>(smem, consts, g.nslots, B, &idx);

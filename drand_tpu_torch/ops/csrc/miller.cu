@@ -26,7 +26,7 @@ using namespace drand;
 // slots 0-5: px, py, qx (2), qy (2) in; slots 0-11: the Fp12 leaves out
 constexpr int NIN = 6;
 
-// group.cuh's layout of a launch of K3, K4 or K6, for the records.
+// group.cuh's layout of a launch of K2, K3, K4 or K6, for the records.
 extern "C" int drand_group_layout(int nslots, int width, int32_t* out) {
   out[0] = group_lanes_per_block(nslots, width);
   out[1] = group_smem_bytes(out[0], nslots);
@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(GROUP_THREADS)
     k_miller(const uint32_t* in, uint32_t* out, const uint32_t* consts,
              const int32_t* prog, const int32_t* sched, int nsched,
              int64_t B) {
-  extern __shared__ Fp smem[];
+  extern __shared__ __align__(16) Fp smem[];
   const GroupProg g = group_prog(prog);
   int64_t idx;
   Fp* lane = group_enter<GROUP>(smem, consts, g.nslots, B, &idx);

@@ -1,18 +1,19 @@
-"""Fp programs of the group-per-lane kernels: K3 and K4 (Fp12), K6 (points).
+"""Fp programs of the group-per-lane kernels: K3 and K4 (Fp12), K6 and K2
+(points).
 
 K3 (``csrc/miller.cu``) and K4 (``csrc/finalexp.cu``) run one warp,
-``GROUP`` = 32 threads, per pairing lane; K6 (``csrc/ladder_var.cu``) runs
-``WIDTH[kind]`` threads per ladder lane.  A lane's field values live in
-shared memory, one Fp (12 words) per slot, and its work is straight-line Fp
-code cut into phases: in a product phase every op is a Montgomery product,
-in a linear phase every op is a +- b, optionally halved mod p, or one of
-the two flag ops K6's complete add needs: an equality flag (every word all
-ones or all zeros) and a word-wise select by such a flag, branchless.  The
-ops of one phase are independent; the group's threads take them round
-robin and synchronise before the next phase (``csrc/group.cuh``).  A lane's
-chain of dependent products is then one product per product phase of at
-most its width of ops, where the one-thread-a-lane kernels ran every
-product in a row.
+``GROUP`` = 32 threads, per pairing lane; K6 (``csrc/ladder_var.cu``) and
+K2 (``csrc/ladder.cu``) run ``WIDTH[kind]`` threads per ladder lane.  A
+lane's field values live in shared memory, one Fp (12 words) per slot, and
+its work is straight-line Fp code cut into phases: in a product phase
+every op is a Montgomery product, in a linear phase every op is a +- b,
+optionally halved mod p, or one of the two flag ops the complete add needs:
+an equality flag (every word all ones or all zeros) and a word-wise select
+by such a flag, branchless.  The ops of one phase are independent; the
+group's threads take them round robin and synchronise before the next
+phase (``csrc/group.cuh``).  A lane's chain of dependent products is then
+one product per product phase of at most its width of ops, where the
+one-thread-a-lane kernels ran every product in a row.
 
 This module writes those programs.  The formulas are traced over symbolic
 Fp values: Karatsuba over the tower for dense products, Granger-Scott
@@ -20,25 +21,28 @@ squaring in the cyclotomic subgroup (K4's pow_x chains: the easy part has
 already mapped every nonzero input into it), the sparse line product (K3),
 the tower inverse down to one Fp inverse (which K4 computes on one thread
 by the binary extended gcd), the Miller steps with the field values of
-``kernels.dbl_step`` / ``kernels.add_step``, and K6's ladder step: the
+``kernels.dbl_step`` / ``kernels.add_step``, K6's ladder step (the
 Jacobian double and complete add of ``curve.DevCurve`` over Fp (G1) or Fp2
-(G2) and the selects that pick the step's result.  Sums are kept as linear
-forms over computed values and built as balanced add trees only where a
-product or an output needs them.  Each fragment is then cut into phases
-(products as early as they can run, each linear op between two product
-phases where it adds no depth) and given slots: the
-named slots carry the state the kernel's loops keep, temporaries share the
-rest, and no op of a phase writes a slot another op of that phase reads.
+(G2) and the selects that pick the step's result), and K2's double and
+complete add, which the bits of its public scalar schedule.  Sums are kept
+as linear forms over computed values and built as balanced add trees only
+where a product or an output needs them.  Each fragment is then cut into
+phases (products as early as they can run, each linear op between two
+product phases where it adds no depth) and given slots: the named slots
+carry the state the kernel's loops keep, temporaries share the rest, and
+no op of a phase writes a slot another op of that phase reads.
 
 Field values are unique, so these programs give the plain versions'
 results (``kernels.miller_loop_plain``, ``final_exponentiation_plain``,
-``scalar_mul_bits_plain``) limb for limb.  What fixes a representative is
-kept: the Miller steps' line coefficients, the order of updates to f, the
-hard part's chain, and the group law's formulas.
+``scalar_mul_bits_plain``, ``scalar_mul_fixed_plain``) limb for limb.  What
+fixes a representative is kept: the Miller steps' line coefficients, the
+order of updates to f, the hard part's chain, and the group law's field
+values (the one point double, K6's and K2's, reaches DevCurve.double's
+X3, Y3, Z3 by other products).
 
 ``program(kind)`` returns one int32 table per kernel and ``schedule(kind)``
-the list of fragments a lane runs (the loops over the bits of |x|), both
-passed with the launch:
+the list of fragments a lane runs (the loops over the bits of |x| or of
+K2's scalar), both passed with the launch:
 
   header  [nslots, nfrags, nphases, nops, inv_in, inv_out]
   frags   2 per fragment: first phase, phase count
@@ -849,31 +853,47 @@ def _e_const(g, v, n):
     return (g.const(ONE_ROW) if v else g.zero(),) + (g.zero(),) * (n - 1)
 
 
-def _pt_double(p):
-    """curve.DevCurve.double: A = X^2, B = Y^2, C = B^2, D = 2((X + B)^2 -
-    A - C), E = 3A; X3 = E^2 - 2D, Y3 = E (D - X3) - 8C, Z3 = 2YZ."""
+def _pt_double(g, p):
+    """curve.DevCurve.double's field values, so its representative: A =
+    X^2, B = Y^2, C = B^2, D = 2((X + B)^2 - A - C), E = 3A; X3 = E^2 - 2D,
+    Y3 = E (D - X3) - 8C, Z3 = 2YZ.  D is computed as X * 4B, a product in
+    place of a squaring and three linear steps, and E, 4B, D, E^2 and X3
+    are materialized once each: G1 6 linear phases and 12 ops, G2 12 and
+    51 (one more Fp product)."""
+    m = lambda v: tuple(_mat(g, c) for c in v)
     X1, Y1, Z1 = p
     A, B, t = _e_sqr(X1), _e_sqr(Y1), _e_mul(Y1, Z1)
-    C, U = _e_sqr(B), _e_sqr(_e_add(X1, B))
-    D = _e_scale(_e_sub(_e_sub(U, A), C), 2)
-    E = _e_scale(A, 3)
-    X3 = _e_sub(_e_sqr(E), _e_scale(D, 2))
+    E = m(_e_scale(A, 3))
+    D = m(_e_mul(X1, m(_e_scale(B, 4))))
+    C = _e_sqr(B)
+    E2 = m(_e_sqr(E))
+    X3 = m(_e_sub(E2, _e_scale(D, 2)))
     Y3 = _e_sub(_e_mul(E, _e_sub(D, X3)), _e_scale(C, 8))
     return X3, Y3, _e_scale(t, 2)
 
 
-# Slots: the accumulator at 0 (the output), P, the step's bit as a flag
-# (csrc/ladder_var.cu writes it before each step), then what depends on P
-# alone: Z2^2, Z2^3 and the flag Z2 == 0, made once by the first fragment.
-def _k6_layout(n):
-    """The named slots of K6 over a field of n components."""
+# K6 and K2 share their slots and formulas.  Slots: the accumulator at 0
+# (the output), P, K6's step bit as a flag (csrc/ladder_var.cu writes it
+# before each step), then what depends on P alone: Z2^2, Z2^3 and a flag,
+# made once by the first fragment: Z2 == 0 for K6, Z2 != 0 (the add's
+# condition) for K2.
+def _pt_layout(n, bit):
+    """The named slots of K6 (bit: the step's bit flag) or K2 over a field
+    of n components."""
     c = 3 * n
-    return dict(ACC=0, PT=c, BIT=2 * c, ZZ=2 * c + 1, ZZZ=2 * c + 1 + n,
-                INF2=2 * c + 1 + 2 * n, N=2 * c + 2 + 2 * n)
+    b = 2 * c + int(bit)
+    lay = dict(ACC=0, PT=c, ZZ=b, ZZZ=b + n, N=b + 2 * n + 1)
+    if bit:
+        lay.update(BIT=2 * c, INF2=b + 2 * n)
+    else:
+        lay.update(FIN2=b + 2 * n)
+    return lay
 
 
-K6 = {1: _k6_layout(1), 2: _k6_layout(2)}
+K6 = {1: _pt_layout(1, True), 2: _pt_layout(2, True)}
 K6_INIT, K6_STEP = range(2)
+K2 = {1: _pt_layout(1, False), 2: _pt_layout(2, False)}
+K2_INIT, K2_DBL, K2_ADD = range(3)
 
 
 def _k6_elem(g, base, n):
@@ -889,38 +909,38 @@ def _k6_out(g, base, pt):
         g.out(base + i, x)
 
 
-def _k6_init(g, n):
-    """acc = infinity (1, 1, 0); P's Z2^2, Z2^3 and Z2 == 0."""
-    lay = K6[n]
+def _pt_init(g, n, lay):
+    """acc = infinity (1, 1, 0); P's Z2^2, Z2^3 and its flag."""
     one, zero = _e_const(g, 1, n), _e_const(g, 0, n)
     _k6_out(g, lay["ACC"], (one, one, zero))
     z2 = _k6_elem(g, lay["PT"] + 2 * n, n)
     zz = _e_sqr(z2)
     for i, x in enumerate(zz + _e_mul(z2, zz)):
         g.out(lay["ZZ"] + i, x)
-    g.out(lay["INF2"], _e_eq(g, z2, zero))
+    inf2 = _e_eq(g, z2, zero)
+    if "INF2" in lay:
+        g.out(lay["INF2"], inf2)
+    else:                         # ~inf2: all ones where Z2 == 0 is clear
+        g.out(lay["FIN2"], g.sel(inf2, g.zero(), g.eq(g.zero(), g.zero())))
 
 
-def _k6_step(g, n):
-    """acc <- 2 acc, then 2 acc + P where the bit is set: DevCurve.double,
-    then DevCurve.add(2 acc, P) with its field values (the embedded
-    doubling for 2 acc == P included), every step and every lane alike.
+def _pt_add(g, n, lay, acc, cond):
+    """DevCurve.add(acc, P) with its field values (the embedded doubling
+    for acc == P included) where the flag cond() is set, else acc (cond
+    builds the flag after the add's flags, which fixes the op order).
 
-    The plain version's selects (curve.py add, then the bit's) give, with
-    acc2 = 2 acc: acc2 where bit & ~inf2 is clear; else P where inf1; else
-    the embedded double where U1 == U2 and S1 == S2, infinity where U1 ==
-    U2 alone, the generic sum where U1 != U2 (in add, same_x carries ~inf1
-    & ~inf2, which these branches already have).  The same picks are made
-    here as one chain of selects under disjoint flags, ordered so that the
-    generic sum, which is ready last, is picked last."""
-    lay = K6[n]
-    acc = _k6_point(g, lay["ACC"], n)
+    The plain version's selects (curve.py add) give: acc where cond is
+    clear; else P where inf1; else the embedded double where U1 == U2 and
+    S1 == S2, infinity where U1 == U2 alone, the generic sum where U1 !=
+    U2 (in add, same_x carries ~inf1 & ~inf2, which these branches
+    already have; cond carries ~inf2).  The same picks are made here as
+    one chain of selects under disjoint flags, ordered so that the generic
+    sum, which is ready last, is picked last."""
     X2, Y2, Z2 = _k6_point(g, lay["PT"], n)
     Z2Z2 = _k6_elem(g, lay["ZZ"], n)
     t1 = _k6_elem(g, lay["ZZZ"], n)
-    acc2 = tuple(_mat(g, c) for c in _pt_double(acc))
-    X1, Y1, Z1 = acc2
-    # DevCurve.add(acc2, P), its products group by group
+    X1, Y1, Z1 = acc
+    # DevCurve.add(acc, P), its products group by group
     Z1Z1, ZS = _e_sqr(Z1), _e_sqr(_e_add(Z1, Z2))
     U1, U2 = _e_mul(X1, Z2Z2), _e_mul(X2, Z1Z1)
     S1, S2 = _e_mul(Y1, t1), _e_mul(Y2, _e_mul(Z1, Z1Z1))
@@ -931,13 +951,13 @@ def _k6_step(g, n):
     Z3 = _e_mul(_e_sub(_e_sub(ZS, Z1Z1), Z2Z2), H)
     X3 = _e_sub(_e_sub(RR, J), _e_scale(V, 2))
     Y3 = _e_sub(_e_mul(rr, _e_sub(V, X3)), _e_scale(_e_mul(S1, J), 2))
-    dbl = _pt_double(acc2)
+    dbl = _pt_double(g, acc)
     # the flags, then the picks
     zero = _e_const(g, 0, n)
     f0 = g.zero()
     inf1 = _e_eq(g, Z1, zero)
     eq_u, eq_s = _e_eq(g, U1, U2), _e_eq(g, S1, S2)
-    cond = g.sel(g.inp(lay["INF2"]), f0, g.inp(lay["BIT"]))  # bit & ~inf2
+    cond = cond()
     c_pt = g.sel(cond, inf1, f0)
     c_add = g.sel(inf1, f0, cond)
     c_u = g.sel(c_add, eq_u, f0)
@@ -945,13 +965,45 @@ def _k6_step(g, n):
     c_gen = g.sel(eq_u, f0, c_add)
     one = _e_const(g, 1, n)
     out = []
-    for a2, p, inf, d, gen in zip(acc2, (X2, Y2, Z2), (one, one, zero), dbl,
-                                  (X3, Y3, Z3)):
-        v = _e_sel(g, c_pt, p, a2)
+    for a, p, inf, d, gen in zip(acc, (X2, Y2, Z2), (one, one, zero), dbl,
+                                 (X3, Y3, Z3)):
+        v = _e_sel(g, c_pt, p, a)
         v = _e_sel(g, c_inf, inf, v)
         v = _e_sel(g, c_dbl, d, v)
         out.append(_e_sel(g, c_gen, gen, v))
-    _k6_out(g, lay["ACC"], out)
+    return out
+
+
+def _k6_init(g, n):
+    _pt_init(g, n, K6[n])
+
+
+def _k6_step(g, n):
+    """acc <- 2 acc, then 2 acc + P where the bit is set: DevCurve.double,
+    then DevCurve.add(2 acc, P), every step and every lane alike (the
+    bit's select folded into the add's: cond = bit & ~inf2)."""
+    lay = K6[n]
+    acc = _k6_point(g, lay["ACC"], n)
+    acc2 = tuple(_mat(g, c) for c in _pt_double(g, acc))
+    cond = lambda: g.sel(g.inp(lay["INF2"]), g.zero(), g.inp(lay["BIT"]))
+    _k6_out(g, lay["ACC"], _pt_add(g, n, lay, acc2, cond))
+
+
+def _k2_init(g, n):
+    _pt_init(g, n, K2[n])
+
+
+def _k2_dbl(g, n):
+    """acc <- 2 acc (DevCurve.double): a zero bit of k."""
+    lay = K2[n]
+    _k6_out(g, lay["ACC"], _pt_double(g, _k6_point(g, lay["ACC"], n)))
+
+
+def _k2_add(g, n):
+    """acc <- DevCurve.add(acc, P): after the double of a one bit of k."""
+    lay = K2[n]
+    _k6_out(g, lay["ACC"], _pt_add(g, n, lay, _k6_point(g, lay["ACC"], n),
+                                   lambda: g.inp(lay["FIN2"])))
 
 
 KINDS = {
@@ -964,13 +1016,25 @@ KINDS = {
                                lambda g: _k6_step(g, 1)], (0, 0)),
     "ladder_g2": (K6[2]["N"], [lambda g: _k6_init(g, 2),
                                lambda g: _k6_step(g, 2)], (0, 0)),
+    "fixed_g1": (K2[1]["N"], [lambda g: _k2_init(g, 1),
+                              lambda g: _k2_dbl(g, 1),
+                              lambda g: _k2_add(g, 1)], (0, 0)),
+    "fixed_g2": (K2[2]["N"], [lambda g: _k2_init(g, 2),
+                              lambda g: _k2_dbl(g, 2),
+                              lambda g: _k2_add(g, 2)], (0, 0)),
 }
 # threads a lane: K3 / K4 a warp; K6 on G1 a quarter warp (no step phase
 # holds more than 8 products), on G2 half a warp (up to 18 Fp products a
-# phase; a whole warp ran slower, PERF.md).  csrc/ladder_var.cu compiles
-# the same widths and checks them at launch.
+# phase; a whole warp ran slower, PERF.md); K2 a quarter warp (a double's
+# product phases hold at most 3 products on G1, 7 on G2; on G2 8 threads
+# were fastest, or within 2 %, at every K2 shape of the main paths:
+# tools/torch_group_variants.py, PERF.md).  csrc/ladder_var.cu and
+# csrc/ladder.cu compile the same widths and check them at launch.
 WIDTH = {"miller": GROUP, "finalexp": GROUP, "ladder_g1": 8,
-         "ladder_g2": 16}
+         "ladder_g2": 16, "fixed_g1": 8, "fixed_g2": 8}
+# K2-G1's second width, for launches whose lanes fill the card, where idle
+# threads cost issue slots (kernels.fixed_width; csrc/ladder.cu)
+FILL_WIDTH = {"fixed_g1": 2}
 
 
 @lru_cache(maxsize=None)
@@ -1009,11 +1073,11 @@ def program(kind):
     return np.array(head + ftab + ptab + otab, dtype=np.int32)
 
 
-def frag_stats(kind):
+def frag_stats(kind, width=None):
     """Per fragment: products, linear ops, product phases, linear phases,
     and the products on one lane's critical path (ceil(n / width) per
-    product phase)."""
-    w, out = WIDTH[kind], []
+    product phase) at `width` threads a lane (default WIDTH[kind])."""
+    w, out = width or WIDTH[kind], []
     for ph in compiled(kind)[0]:
         prods = [len(ops) for p, ops in ph if p]
         lins = [len(ops) for p, ops in ph if not p]
@@ -1033,12 +1097,16 @@ def schedule(kind, xbits=None):
     after its leading one): the kernel walks this list, so the loops over
     the bits of |x| live here and not in the kernels.  K6's xbits are a
     lane's scalar bits: its init, then for each bit, whatever it is, the
-    bit's flag and a step (csrc/ladder_var.cu loops so itself)."""
+    bit's flag and a step (csrc/ladder_var.cu loops so itself).  K2's
+    xbits are its public scalar's bits, the leading one included: its
+    init, then a double a bit and an add after each one bit."""
     if kind.startswith("ladder"):
         return [K6_INIT] + [BIT_FLAG, K6_STEP] * len(xbits)
     xbits = XBITS if xbits is None else xbits
     loop = lambda step, add: [f for b in xbits
                               for f in ((step, add) if b else (step,))]
+    if kind.startswith("fixed"):
+        return [K2_INIT] + loop(K2_DBL, K2_ADD)
     if kind == "miller":
         return [ML_INIT] + loop(ML_DBL, ML_ADD) + [ML_FIN]
     out = [FE_PRE, INVERT, FE_POST]
@@ -1047,12 +1115,13 @@ def schedule(kind, xbits=None):
     return out + [FE_H5B, FE_H5C, FE_H5D]
 
 
-def lane_counts(kind, xbits=None):
+def lane_counts(kind, xbits=None, width=None):
     """One lane's totals over its schedule: products (code), linear ops,
-    and the dependent products and linear steps of its critical path.
-    K4's Fp inverse (binary extended gcd on one thread, then one product by
-    R^3) counts as one product, K6's bit flag as one linear phase."""
-    st = frag_stats(kind)
+    and the dependent products and linear steps of its critical path at
+    `width` threads a lane.  K4's Fp inverse (binary extended gcd on one
+    thread, then one product by R^3) counts as one product, K6's bit flag
+    as one linear phase."""
+    st = frag_stats(kind, width)
     tot = dict.fromkeys(st[0], 0)
     for f in schedule(kind, xbits):
         if f == INVERT:

@@ -8,6 +8,8 @@ recovery, both signature groups) has a hand-written CUDA C++ kernel
   K1 pow_fixed         <- pallas_field._pow_call          (csrc/pow.cu)
   K2 scalar_mul_fixed  <- pallas_field._ladder_fixed_call (csrc/ladder.cu,
                                                            G1 and G2)
+     (K2 runs a thread group per lane over fp12prog.py's point programs,
+      scheduled by the public scalar's bits; csrc/group.cuh)
   K3 miller_loop       <- pallas_field._miller_call       (csrc/miller.cu)
   K4 final_exponentiation <- pallas_field._finalexp_call  (csrc/finalexp.cu)
      (K3 and K4 run a warp per pairing lane over shared-memory Fp programs
@@ -180,13 +182,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     as c_void_p); each returns its cudaGetLastError()."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.drand_pow.argtypes = [vp, vp, vp, i32, i64, vp]
-    lib.drand_ladder_g1.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_ladder_g1.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32, i64,
+                                    vp]
     lib.drand_miller.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
     lib.drand_finalexp.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
     lib.drand_sum_g1.argtypes = [vp, vp, i64, vp]
     lib.drand_glv_g1.argtypes = [vp, vp, vp, i32, i64, vp]
     lib.drand_pow2.argtypes = [vp, vp, vp, i32, i64, vp]
-    lib.drand_ladder_g2.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_ladder_g2.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32, i64,
+                                    vp]
     lib.drand_sum_g2.argtypes = [vp, vp, i64, vp]
     lib.drand_glv_g2.argtypes = [vp, vp, vp, i32, i64, vp]
     lib.drand_ladder_var_g1.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32,
@@ -275,14 +279,16 @@ def const_bundle(device: str) -> torch.Tensor:
 
 @lru_cache(maxsize=None)
 def program_tensor(kind: str, device: str) -> torch.Tensor:
-    """fp12prog's int32 program table for K3 ("miller"), K4 ("finalexp")
-    or K6 ("ladder_g1", "ladder_g2") on `device`."""
+    """fp12prog's int32 program table for K3 ("miller"), K4 ("finalexp"),
+    K6 ("ladder_g1", "ladder_g2") or K2 ("fixed_g1", "fixed_g2") on
+    `device`."""
     return torch.from_numpy(FP.program(kind)).to(device)
 
 
 @lru_cache(maxsize=None)
 def schedule_tensor(kind: str, xbits: tuple, device: str) -> torch.Tensor:
-    """The fragments a K3 / K4 lane runs for loop bits xbits."""
+    """The fragments a K3 / K4 lane runs for loop bits xbits, a K2 lane
+    for the bits of its scalar."""
     return torch.tensor(FP.schedule(kind, list(xbits)), dtype=torch.int32,
                         device=device)
 
@@ -297,12 +303,13 @@ def _group_launch(fn, kind, x, out, dev, name):
               _stream(x.device)), name)
 
 
-def group_layout(kind):
-    """(lanes a block, dynamic shared-memory bytes a block) of a K3, K4 or
-    K6 launch, as csrc/group.cuh computes them for the program's slots and
-    width."""
+def group_layout(kind, width=None):
+    """(lanes a block, dynamic shared-memory bytes a block) of a K2, K3, K4
+    or K6 launch, as csrc/group.cuh computes them for the program's slots
+    and a width (default fp12prog.WIDTH)."""
     out = (ctypes.c_int32 * 2)()
-    _lib().drand_group_layout(FP.compiled(kind)[1], FP.WIDTH[kind], out)
+    _lib().drand_group_layout(FP.compiled(kind)[1],
+                              width or FP.WIDTH[kind], out)
     return out[0], out[1]
 
 
@@ -375,9 +382,24 @@ def scalar_mul_fixed_plain(p, k: int):
     return acc
 
 
+# K2's width (threads a lane): fp12prog.WIDTH while a launch leaves the
+# card idle and a lane's chain sets its time; on G1 fp12prog.FILL_WIDTH
+# from this many lanes on, where the lanes fill the card and idle threads
+# cost issue slots (the two cross between 2048 and 8192 lanes, PERF.md).
+K2_FILL_LANES = 4096
+
+
+def fixed_width(kind: str, lanes: int) -> int:
+    """The width K2 ("fixed_g1" / "fixed_g2") runs `lanes` lanes at."""
+    if lanes >= K2_FILL_LANES and kind in FP.FILL_WIDTH:
+        return FP.FILL_WIDTH[kind]
+    return FP.WIDTH[kind]
+
+
 def scalar_mul_fixed(p, k: int):
-    """k*P for a static k >= 1 (Jacobian Montgomery limbs; a G1 or a G2
-    point, told apart by the arity of its coordinates)."""
+    """k*P for a static public k >= 1 (Jacobian Montgomery limbs; a G1 or
+    a G2 point, told apart by the arity of its coordinates).  The kernel's
+    schedule follows k's bits: a secret scalar goes to scalar_mul_bits."""
     assert k >= 1
     leaves = _flat(p)
     if not _on_card(leaves[0]):
@@ -385,13 +407,18 @@ def scalar_mul_fixed(p, k: int):
     g2 = _is_g2(p)
     shape = torch.broadcast_shapes(*(c.shape for c in leaves))[:-1]
     x = to_words([c.expand(shape + (L.NLIMB,)) for c in leaves])
+    n = x.shape[-1]
     out = torch.empty_like(x)
-    bits = bits_tensor(tuple(L.exp_bits(k)), str(x.device))
+    kind = "fixed_g2" if g2 else "fixed_g1"
+    dev = str(x.device)
+    sched = schedule_tensor(kind, tuple(L.exp_bits(k)), dev)
     fn = _lib().drand_ladder_g2 if g2 else _lib().drand_ladder_g1
     name = "scalar_mul_fixed_g2" if g2 else "scalar_mul_fixed"
-    _check(fn(x.data_ptr(), out.data_ptr(), bits.data_ptr(), bits.numel(),
-              x.shape[-1], _stream(x.device)), name)
-    _count(name, k, x.shape[-1])
+    _check(fn(x.data_ptr(), out.data_ptr(), const_bundle(dev).data_ptr(),
+              program_tensor(kind, dev).data_ptr(), FP.compiled(kind)[1],
+              fixed_width(kind, n), sched.data_ptr(), sched.numel(), n,
+              _stream(x.device)), name)
+    _count(name, k, n)
     return _unflat(from_words(out, shape), g2)
 
 

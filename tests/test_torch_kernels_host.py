@@ -190,17 +190,20 @@ def test_miller_kernel_add_steps(kernel_path, monkeypatch, n):
     assert all(not torch.equal(a, b) for a, b in zip(outs[0], outs[3]))
 
 
-@pytest.mark.parametrize("kind,tail", [("miller", 7), ("finalexp", 5),
-                                       ("ladder_g1", 5), ("ladder_g2", 5)])
-def test_group_layout(kernel_path, kind, tail):
-    """The layout csrc/group.cuh gives a K3 / K4 / K6 launch: at least one
-    lane a block, whole warps of lanes, the lanes' slots and the constants
-    under 48 KB (no opt-in), and the tail widths the tests run are no
-    multiple of it."""
-    lanes, smem = K.group_layout(kind)
+@pytest.mark.parametrize("kind,tail,width", [
+    ("miller", 7, None), ("finalexp", 5, None), ("ladder_g1", 5, None),
+    ("ladder_g2", 5, None), ("fixed_g1", 7, None), ("fixed_g1", 7, 2),
+    ("fixed_g2", 7, None)])
+def test_group_layout(kernel_path, kind, tail, width):
+    """The layout csrc/group.cuh gives a K2 / K3 / K4 / K6 launch: at
+    least one lane a block, whole warps of lanes, the lanes' slots and the
+    constants under 48 KB (no opt-in), and the tail widths the tests run
+    are no multiple of it."""
+    width = width or FP.WIDTH[kind]
+    lanes, smem = K.group_layout(kind, width)
     slots = FP.compiled(kind)[1]
     assert lanes >= 1 and tail % lanes
-    assert lanes * FP.WIDTH[kind] % 32 == 0
+    assert lanes * width % 32 == 0
     assert lanes * slots * 48 < smem <= 48 * 1024
 
 
@@ -498,3 +501,82 @@ def test_ladder_var_g2_kernel_256_bits(kernel_path):
     assert K.SHAPES == {("scalar_mul_bits_g2", 256, 3): 1}
     _same(K._flat(got), K._flat(K.scalar_mul_bits_plain(pts, bits)))
     assert DC.G2.is_infinity(got).tolist() == [True, False, True]
+
+
+# ---------------------------------------------------------------------------
+# K2 on the group programs: each compiled width, edge lanes
+# ---------------------------------------------------------------------------
+
+K2_CASES = [(False, False), (False, True), (True, False)]
+K2_IDS = ["g1-8", "g1-2", "g2-8"]
+
+
+def _k2_width(monkeypatch, g2, fill):
+    """Run K2 at fp12prog.WIDTH, or at G1's FILL_WIDTH (the lane threshold
+    set to one lane); -> the width the wrapper will pass."""
+    kind = "fixed_g2" if g2 else "fixed_g1"
+    if fill:
+        monkeypatch.setattr(K, "K2_FILL_LANES", 1)
+        return FP.FILL_WIDTH[kind]
+    return FP.WIDTH[kind]
+
+
+def _k2_lanes(g2):
+    """7 lanes (no multiple of a block's lanes at any width): infinity, the
+    generator, a member, an on-curve point outside the group, two points
+    of small order outside the group (G1: orders 3 and 11; G2: 13 and 23),
+    which take the add through P == +-Q and an infinite accumulator, and
+    infinity again (test_torch_k2prog._lanes)."""
+    from test_torch_k2prog import _lanes
+    enc = DC.encode_g2_points if g2 else DC.encode_g1_points
+    return enc(_lanes(g2) + [None])
+
+
+@pytest.mark.parametrize("g2,fill", K2_CASES, ids=K2_IDS)
+@pytest.mark.parametrize("k", [-X, 1 - X, 3], ids=["|x|", "1-x", "3"])
+def test_ladder_group_kernel_edge_lanes(kernel_path, monkeypatch, g2, fill,
+                                        k):
+    """K2's C++ interpreter at each compiled width against the plain
+    ladder: infinity lanes, points of small order, 7 lanes."""
+    _k2_width(monkeypatch, g2, fill)
+    pts = _k2_lanes(g2)
+    got = K.scalar_mul_fixed(pts, k)
+    name = "scalar_mul_fixed_g2" if g2 else "scalar_mul_fixed"
+    assert K.SHAPES == {(name, k, 7): 1}
+    _same(K._flat(got), K._flat(K.scalar_mul_fixed_plain(pts, k)))
+    curve = DC.G2 if g2 else DC.G1
+    inf = curve.is_infinity(got).tolist()
+    assert inf[0] and inf[6] and not inf[1]
+
+
+@pytest.mark.parametrize("g2,fill", K2_CASES, ids=K2_IDS)
+def test_ladder_group_kernel_broadcasts_and_key(kernel_path, monkeypatch,
+                                                g2, fill):
+    """A Z coordinate shared by every lane (shape (24,)) broadcasts, and a
+    255-bit scalar (chip_smoke.py signs its test chain through K2 with
+    one) runs its 255 doubles and adds, at each compiled width."""
+    _k2_width(monkeypatch, g2, fill)
+    pts = _k2_lanes(g2)
+    key = RNG.getrandbits(255) | 1 << 254
+    one = L.mont_const(1, "cpu")
+    if g2:
+        bz = (pts[0], pts[1], (one, torch.zeros_like(one)))
+        full = (pts[0], pts[1], tuple(L.encode_mont([v] * 7) for v in (1, 0)))
+    else:
+        bz = (pts[0], pts[1], one)
+        full = (pts[0], pts[1], L.encode_mont([1] * 7))
+    _same(K._flat(K.scalar_mul_fixed(bz, -X)),
+          K._flat(K.scalar_mul_fixed_plain(full, -X)))
+    sub = DC._tmap(lambda c: c[3:], pts)
+    _same(K._flat(K.scalar_mul_fixed(sub, key)),
+          K._flat(K.scalar_mul_fixed_plain(sub, key)))
+
+
+def test_ladder_group_kernel_refuses_an_uncompiled_width(kernel_path,
+                                                         monkeypatch):
+    """A width csrc/ladder.cu does not compile is refused at the launch
+    (the entry returns 1 and the wrapper raises): no other width runs."""
+    monkeypatch.setitem(FP.WIDTH, "fixed_g2", 16)
+    with pytest.raises(RuntimeError, match="scalar_mul_fixed_g2"):
+        K.scalar_mul_fixed(DC.encode_g2_points(_g2_points()), -X)
+    assert kernel_path["scalar_mul_fixed_g2"] == 0
