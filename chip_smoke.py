@@ -41,8 +41,10 @@ Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
 timed; K3 and K4 (a warp a pairing lane) also at tail widths with a zero
 and a one lane, K6 (a thread group a ladder lane) at 16 bits over 5 lanes
-on both curves, K2 (a thread group a ladder lane) at each width it
-compiles, each group kernel's shapes with their dependent chain
+on both curves, K2 (a thread group a lane) at each width it compiles,
+K1 (both entries: the window chain and, for p - 2, the
+inversion) and K5 also on edge values (0, 1, p - 1, R mod p, u), each
+group kernel's shapes with their dependent chain
 (ops/fp12prog.py), and the narrow K3 / K4 launches split into per-step
 latencies by rerunning them with other loop bits.  Each phase prints one
 JSON line; the line before the last is the per-kernel table ({"kernels":
@@ -108,6 +110,7 @@ IMAD_SQR = 2 * 78 + 12 + 24 * 12
 IMAD_PER_SM_CLOCK = 64
 HBM_BYTES_PER_S = 3.35e12
 WORD_BYTES = 12 * 4      # one Fp element
+K1_LIMB_BYTES = 24 * 8   # K1 reads and writes the (B, 24) int64 limbs
 
 
 LOG = []                 # chip_smoke.jsonl under --log-dir: every line
@@ -186,23 +189,30 @@ def _hw(e):
     return bin(e).count("1")
 
 
+def _windows(e, w):
+    """(count, length of the first) of the left-to-right sliding windows
+    of width w over e's bits."""
+    bits, i, windows, first = bin(e)[2:] if e else "", 0, 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            i += 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        windows, first, i = windows + 1, first or j - i, j
+    return windows, first
+
+
 def _sliding_window(e):
     """(products, squarings) of left-to-right sliding-window e-th power at
     its best width: the odd powers up to a^(2^w-1), one squaring per bit
-    below the top, one product per window after the first."""
-    bits = bin(e)[2:]
+    below the first window, one product per window after the first."""
     best = None
     for w in range(1, 8):
-        i, windows = 0, 0
-        while i < len(bits):
-            if bits[i] == "0":
-                i += 1
-                continue
-            j = min(i + w, len(bits))
-            while bits[j - 1] == "0":
-                j -= 1
-            windows, i = windows + 1, j
-        cost = (2 ** (w - 1) - 1 + windows - 1, len(bits) - 1 + (w > 1))
+        count, first = _windows(e, w)
+        cost = (2 ** (w - 1) - 1 + count - 1,
+                e.bit_length() - first + (w > 1))
         if best is None or _imad(*cost) < _imad(*best):
             best = cost
     return best
@@ -216,8 +226,30 @@ def need_pow(e):
     return _imad(*_sliding_window(e))
 
 
-def code_pow(e):
-    return _imad(e.bit_length() + _hw(e))   # a product per bit, one per 1
+# K1's inversion for e = p - 2 (csrc/field.cuh fp_inv, safegcd): 37
+# batches of 30 divsteps, each divstep 28 word operations (masks, adds,
+# shifts); after each batch the f, g update (13 limbs: four 32 x 32 -> 64
+# products, two 64-bit shifts and two masks a limb, 16 word operations) and
+# the d, e update (six products a limb, 20); then one Montgomery product.
+# Counted at the multiply-add rate: the card issues its 32-bit integer
+# operations at 64 a clock per SM too.
+INV_BATCHES, INV_DIVSTEP_OPS = 37, 28
+INV_UPDATE_OPS = 13 * (16 + 20)
+INV_OPS = INV_BATCHES * (30 * INV_DIVSTEP_OPS + INV_UPDATE_OPS) + IMAD_MUL
+
+
+def need_inv(p):
+    """x^(p-2), the inverse: the cheaper of the Fermat window chain and
+    the safegcd inversion's word operations."""
+    return min(need_pow(p - 2), INV_OPS)
+
+
+def code_pow(sched, ntab):
+    """K1's windowed chain (csrc/pow.cu) for a kernels.pow_schedule
+    schedule: the table (x^2, then ntab - 1 products), a squaring at each
+    -1 and a product at each entry after the first, the squaring at 456."""
+    sqrs = sched[1:].count(-1)
+    return _imad(len(sched) - 1 - sqrs + ntab - 1, sqrs + (ntab > 1))
 
 
 def need_ladder(k):
@@ -329,13 +361,20 @@ G2_ADD_CODE = 13 * FP2_M + 10 * FP2_S
 G2_MADD_CODE = 10 * FP2_M + 8 * FP2_S
 
 
-def need_pow2(e):
+def need_pow2(e, p):
+    """Fp2 x^e: the cheaper of the sliding-window chain over e and the
+    Frobenius split (x^p = conj(x): e = a p + b, x^e = conj(x)^a x^b, one
+    squaring a bit of max(a, b), the windows of a and b over one table of
+    odd powers, conjugation free)."""
+    a, b = divmod(e, p)
     muls, sqrs = _sliding_window(e)
-    return _imad(FP2_M * muls + FP2_S * sqrs)
-
-
-def code_pow2(e):
-    return _imad(FP2_S * e.bit_length() + FP2_M * _hw(e))
+    best = _imad(FP2_M * muls + FP2_S * sqrs)
+    for w in range(1, 8):
+        (na, fa), (nb, fb) = _windows(a, w), _windows(b, w)
+        muls = 2 ** (w - 1) - 1 + na + nb - 1
+        sqrs = max(a.bit_length() - fa, b.bit_length() - fb) + (w > 1)
+        best = min(best, _imad(FP2_M * muls + FP2_S * sqrs))
+    return best
 
 
 def need_ladder_g2(k):
@@ -399,9 +438,10 @@ def ptxas_summary(log):
 
 def entry_stats(regs, src, *needles):
     """The ptxas statistics of every entry kernel of `src` whose mangled
-    name holds every needle (one entry, or K2-G1's one a width)."""
+    name holds one of the needles (K1's chain and inversion, K2-G1's
+    entry a width)."""
     return [dict(st, entry=name) for name, st in regs.get(src, {}).items()
-            if all(nd in name for nd in needles)]
+            if any(nd in name for nd in needles)]
 
 
 # ---------------------------------------------------------------------------
@@ -1046,9 +1086,9 @@ def main():
                 words * lanes * WORD_BYTES / HBM_BYTES_PER_S * 1e3)
 
     xbits = K.XLOOP_BITS
-    # K3 / K4 launch a warp a lane, K6 and K2 a thread group a lane, with
-    # the lane's slots in dynamic shared memory (csrc/group.cuh): record
-    # that layout (K2 at each width it compiles)
+    # K3 / K4 launch a warp a lane, K6, K2 and K5 a thread group a lane,
+    # with the lane's slots in dynamic shared memory (csrc/group.cuh):
+    # record that layout (K2 at each width it compiles)
     k2_kind = {"scalar_mul_fixed": "fixed_g1",
                "scalar_mul_fixed_g2": "fixed_g2"}
 
@@ -1064,7 +1104,8 @@ def main():
                 "dynamic_smem_bytes_per_block": smem}
     group_layout = {kname: layout(kind, FP.WIDTH[kind]) for kname, kind in (
         ("miller_loop", "miller"), ("final_exponentiation", "finalexp"),
-        ("scalar_mul_bits", "ladder_g1"), ("scalar_mul_bits_g2", "ladder_g2"))}
+        ("scalar_mul_bits", "ladder_g1"), ("scalar_mul_bits_g2", "ladder_g2"),
+        ("pow_fixed_fp2", "pow2"))}
     for kname, kind in k2_kind.items():
         group_layout[kname] = {"widths": [layout(kind, w)
                                           for w in k2_widths(kind)],
@@ -1120,8 +1161,37 @@ def main():
                 (need_ladder_g2(key) if g2k else need_ladder(key),
                  code_group(counts)), 12 if g2k else 6,
                 dict(chain(kind, counts), threads_per_lane=w))
+    def k1_shape(label, e, x):
+        """A K1 shape: the inversion for p - 2, else the windowed chain
+        kernels.pow_schedule gives for e."""
+        if e == P - 2:
+            code, entry = INV_OPS, "k_inv"
+        else:
+            code, entry = code_pow(*K.pow_schedule(e)), "k_pow"
+        return (label, e, x.shape[0], lambda: K.pow_fixed(x, e),
+                lambda: K.pow_fixed_plain(x, e), lambda a, b: err([a], [b]),
+                (need_inv(P) if e == P - 2 else need_pow(e), code),
+                2 * K1_LIMB_BYTES / WORD_BYTES, {"entry": entry})
+
+    def k5_shape(label, e, x):
+        """A K5 shape: need for e, code and chain from the "pow2" program's
+        counts for e."""
+        lanes = x[0].shape[0]
+        w = FP.WIDTH["pow2"]
+        counts = FP.lane_counts("pow2", e, w)
+        return (label, e, lanes, lambda: K.pow_fixed_fp2(x, e),
+                lambda: K.pow_fixed_fp2_plain(x, e), err_flat,
+                (need_pow2(e, P), code_group(counts)), 4,
+                dict(chain("pow2", counts), threads_per_lane=w))
     leaves = T.fp12_leaves
     e_sqrt, e_inv = (P - 3) // 4, P - 2
+    # K1 and K5 edge lanes, checked: 0, 1, p - 1, R mod p (and u, c1 = 0
+    # in Fp2) beside random values
+    edge = [0, 1, P - 1, (1 << 384) % P]
+    x_edge = torch.cat([L.encode_mont(edge, dev), rand_fp(5)])
+    x2_edge = (torch.cat([L.encode_mont(edge + [0, 7], dev), rand_fp(3)]),
+               torch.cat([L.encode_mont([0, 0, 0, 0, 1, 0], dev),
+                          rand_fp(3)]))
     # K8 at 2N: the tables of [S, H] lanes as g1_glv_msm_terms builds them,
     # bits from the device sampler (the same on the S and H halves)
     both = tuple(torch.cat([c, c.roll(1, 0)]) for c in pj)
@@ -1183,17 +1253,12 @@ def main():
     # (name, source, pallas_call line, TPU kernel and instance, entry
     #  kernel name parts, shapes)
     specs = [
-        ("pow_fixed", "pow.cu", 522, "K1", ("k_pow",), [
-            ("(p-3)/4 at 3N", e_sqrt, 3 * pad,
-             lambda: K.pow_fixed(x3n, e_sqrt),
-             lambda: K.pow_fixed_plain(x3n, e_sqrt), lambda a, b: err([a], [b]),
-             (need_pow(e_sqrt), code_pow(e_sqrt)), 2),
-            ("p-2 at N", e_inv, pad, lambda: K.pow_fixed(xn, e_inv),
-             lambda: K.pow_fixed_plain(xn, e_inv), lambda a, b: err([a], [b]),
-             (need_pow(e_inv), code_pow(e_inv)), 2),
-            ("p-2 at 1 lane", e_inv, 1, lambda: K.pow_fixed(x1, e_inv),
-             lambda: K.pow_fixed_plain(x1, e_inv), lambda a, b: err([a], [b]),
-             (need_pow(e_inv), code_pow(e_inv)), 2)]),
+        ("pow_fixed", "pow.cu", 522, "K1", ("k_pow", "k_inv"), [
+            k1_shape("(p-3)/4 at 3N", e_sqrt, x3n),
+            k1_shape("p-2 at N", e_inv, xn),
+            k1_shape("p-2 at 1 lane", e_inv, x1),
+            k1_shape("p-2, edge values (check)", e_inv, x_edge),
+            k1_shape("(p-3)/4, edge values (check)", e_sqrt, x_edge)]),
         ("scalar_mul_fixed", "ladder.cu", 635, "K2 G1", ("k_ladder_g1",), [
             k2_shape("scalar_mul_fixed", -X, pad, pj, "|x| at N"),
             k2_shape("scalar_mul_fixed", 1 - X, pad, pj, "1-x at N")]),
@@ -1242,10 +1307,8 @@ def main():
              (need_glv(g0, g1) / (2 * pad), code_glv(g0, g1) / (2 * pad)),
              6 + 2 * 64 / 12 + 3)]),
         ("pow_fixed_fp2", "pow2.cu", 562, "K5", ("k_pow2",), [
-            ("(p^2-9)/16 at 3N", E2, 3 * pad,
-             lambda: K.pow_fixed_fp2(x3n2, E2),
-             lambda: K.pow_fixed_fp2_plain(x3n2, E2), err_flat,
-             (need_pow2(E2), code_pow2(E2)), 4)]),
+            k5_shape("(p^2-9)/16 at 3N", E2, x3n2),
+            k5_shape("(p^2-9)/16, edge values (check)", E2, x2_edge)]),
         ("scalar_mul_fixed_g2", "ladder.cu", 635, "K2 G2", ("k_ladder_g2",), [
             k2_shape("scalar_mul_fixed_g2", -X, pad, pj2, "|x| at N")]),
         ("sum_tiles_g2", "sum.cu", 1187, "K7 G2", ("k_sum_g2",), sum2_shapes),
@@ -1324,16 +1387,10 @@ def main():
         label = f"{key_label(kname, key)} at {lanes}" if key is not None \
             else f"{lanes} lanes"
         if kname == "pow_fixed":
-            x = rand_fp_dev(lanes)
-            return (label, key, lanes, lambda: K.pow_fixed(x, key),
-                    lambda: K.pow_fixed_plain(x, key),
-                    lambda a, b: err([a], [b]),
-                    (need_pow(key), code_pow(key)), 2)
+            return k1_shape(label, key, rand_fp_dev(lanes))
         if kname == "pow_fixed_fp2":
-            x = (rand_fp_dev(lanes), rand_fp_dev(lanes))
-            return (label, key, lanes, lambda: K.pow_fixed_fp2(x, key),
-                    lambda: K.pow_fixed_fp2_plain(x, key), err_flat,
-                    (need_pow2(key), code_pow2(key)), 4)
+            return k5_shape(label, key, (rand_fp_dev(lanes),
+                                         rand_fp_dev(lanes)))
         if kname.startswith("scalar_mul_fixed"):
             return k2_shape(kname, key, lanes, spread(special[g2k], lanes),
                             label)

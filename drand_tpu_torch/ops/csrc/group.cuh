@@ -1,23 +1,25 @@
 // A thread group per lane: the interpreter of the Fp programs that
 // drand_tpu_torch/ops/fp12prog.py writes for K2 (ladder.cu), K3
-// (miller.cu), K4 (finalexp.cu) and K6 (ladder_var.cu).
+// (miller.cu), K4 (finalexp.cu), K5 (pow2.cu) and K6 (ladder_var.cu).
 //
 // A group of W threads owns one lane: a warp (W = GROUP) for K3 and K4, a
 // quarter (G1) or half (G2) a warp for K6, a quarter warp for K2 (2
-// threads on G1 where the lanes fill the card).  The lane's field values
-// sit in shared memory, one Fp per slot, and its work is a list of
-// phases: in a product phase every op is a Montgomery product (fp_mul), in
-// a linear phase every op is a +- b, halved mod p when asked, or one of
-// the point programs' flag ops: an equality flag (every word all ones or
-// all zeros) and a word-wise select by such a flag, both branchless.  The
+// threads on G1 where the lanes fill the card), 2 threads for K5.  The
+// lane's field values sit in shared memory, one Fp per slot, and its work
+// is a list of phases: in a product phase every op is a Montgomery
+// product (fp_mul), in a linear phase every op is a +- b, halved mod p
+// when asked, or one of the point programs' flag ops: an equality flag
+// (every word all ones or all zeros) and a word-wise select by such a
+// flag, both branchless.  The
 // ops of a phase are independent; thread t of the group runs ops t, t + W,
 // ... of it, each in registers, and the warp synchronises (__syncwarp)
 // before the next phase.  So the lane's dependent chain is one product per
 // product phase of at most W ops, and no Fp12 value or point lives in
 // local memory.  Every branch is on the program (phase kind, op kind, the
-// loop bits of |x| or of K2's public scalar) and so uniform across the
-// warp, whatever the lane's data: all groups of a warp run the same
-// phases, so a sub-warp group may synchronise the whole warp.
+// loop bits of |x|, of K2's public scalar or of K5's public exponent) and
+// so uniform across the warp, whatever the lane's data: all groups of a
+// warp run the same phases, so a sub-warp group may synchronise the whole
+// warp.
 //
 // group_phase<W>(body) is the one place the group runs: on the card each
 // thread calls body(its index in the group) and the warp synchronises; on
@@ -221,12 +223,11 @@ DI void store_lane(uint32_t* out, const Fp* lane, int n, int64_t B,
   });
 }
 
-DNI void fp_inv(Fp& r, const Fp& a);
-
 // One lane: nin Fp coordinates in at slots 0.., the fragments of `sched`
 // in order (SCHED_INVERT: the Fp inverse of slot inv_in into inv_out, on
-// one thread), 12 Fp leaves out from slots 0..11.  The loops over the bits
-// of |x| are in the schedule (fp12prog.schedule), uniform across the group.
+// one thread: field.cuh's constant-time fp_inv), 12 Fp leaves out from
+// slots 0..11.  The loops over the bits of |x| are in the schedule
+// (fp12prog.schedule), uniform across the group.
 constexpr int SCHED_INVERT = -1;
 
 DI void group_lane(const GroupProg& g, Fp* lane, const Fp* cs,
@@ -247,69 +248,16 @@ DI void group_lane(const GroupProg& g, Fp* lane, const Fp* cs,
   store_lane<GROUP>(out, lane, 12, B, idx);
 }
 
-// 1/a in Montgomery form, 0 -> 0: the binary extended gcd on the integer
-// x = a R mod p gives x^-1 = a^-1 R^-1, and one product by R^3 mod p turns
-// it into a^-1 R.  Variable time, which is fine for public verification
-// values; some 760 halvings and 380 subtractions of 12 words against the
-// ~570 products of the p-2 chain.
-CMEM uint32_t kR3[12] = {
-    0xd94ca1e0u, 0xed48ac6bu, 0x03a7adf8u, 0x315f831eu, 0x615e29ddu,
-    0x9a53352au, 0x921e1761u, 0x34c04e5eu, 0x65724728u, 0x2512d435u,
-    0x91755d4du, 0x0aa63460u};
-
-DI bool words_one(const uint32_t* x) {
-  uint32_t acc = x[0] ^ 1u;
-  UNROLL for (int i = 1; i < 12; i++) acc |= x[i];
-  return acc == 0;
-}
-
-// a >= b, then a -= b (12 words)
-DI bool words_sub_if_ge(uint32_t* a, const uint32_t* b) {
-  uint32_t d[12];
-  uint64_t bw = 0;
-  UNROLL for (int i = 0; i < 12; i++) {
-    uint64_t t = (uint64_t)a[i] - b[i] - bw;
-    d[i] = (uint32_t)t;
-    bw = t >> 63;
-  }
-  if (bw) return false;
-  UNROLL for (int i = 0; i < 12; i++) a[i] = d[i];
-  return true;
-}
-
-DNI void fp_inv(Fp& r, const Fp& a) {
-  if (fp_is_zero(a)) {
-    fp_zero(r);
-    return;
-  }
-  uint32_t u[12], v[12];
-  Fp x1, x2;
-  UNROLL for (int i = 0; i < 12; i++) {
-    u[i] = a.v[i];
-    v[i] = kP[i];
-    x1.v[i] = 0u;
-    x2.v[i] = 0u;
-  }
-  x1.v[0] = 1u;
-  while (!words_one(u) && !words_one(v)) {
-    while (!(u[0] & 1u)) {
-      words_shr1(u);
-      fp_half(x1);
-    }
-    while (!(v[0] & 1u)) {
-      words_shr1(v);
-      fp_half(x2);
-    }
-    if (words_sub_if_ge(u, v)) {
-      fp_sub(x1, x1, x2);
-    } else {
-      words_sub_if_ge(v, u);
-      fp_sub(x2, x2, x1);
-    }
-  }
-  Fp k;
-  fp_load_const(k, kR3);
-  fp_mul(r, words_one(u) ? x1 : x2, k);
+// One lane of a kernel whose public constant schedules its fragments (K2's
+// scalar, K5's exponent): NC Fp coordinates in at slots NC .. 2 NC - 1,
+// the fragments of `sched` in order, NC out from slots 0 .. NC - 1.
+template <int W, int NC>
+DI void sched_lane(const GroupProg& g, Fp* lane, const Fp* cs,
+                   const uint32_t* in, uint32_t* out, const int32_t* sched,
+                   int nsched, int64_t B, int64_t idx) {
+  load_lane<W>(lane + NC, in, NC, B, idx);
+  for (int s = 0; s < nsched; s++) run_frag<W>(g, lane, cs, sched[s]);
+  store_lane<W>(out, lane, NC, B, idx);
 }
 
 }  // namespace drand

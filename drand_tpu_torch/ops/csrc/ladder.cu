@@ -30,8 +30,8 @@
 // sequence for every scalar.
 //
 // No branch reads a lane's data: every branch is on the program or the
-// schedule, the same for every lane of the launch.  A lane's own loop (not
-// group.cuh's group_lane) keeps K4's inverse out of this kernel.
+// schedule, the same for every lane of the launch.  group.cuh's sched_lane
+// (not group_lane) keeps K4's inverse out of this kernel.
 
 #include "group.cuh"
 
@@ -41,15 +41,7 @@ using namespace drand;
 constexpr int K2_G1_FILL = 2, K2_G1_WIDTH = 8, K2_G2_WIDTH = 8;
 
 // fp12prog.K2 slots for NC coordinates: the accumulator at 0 (the output),
-// P at NC (the input)
-template <int W, int NC>
-DI void ladder_lane(const GroupProg& g, Fp* lane, const Fp* cs,
-                    const uint32_t* in, uint32_t* out, const int32_t* sched,
-                    int nsched, int64_t B, int64_t idx) {
-  load_lane<W>(lane + NC, in, NC, B, idx);
-  for (int s = 0; s < nsched; s++) run_frag<W>(g, lane, cs, sched[s]);
-  store_lane<W>(out, lane, NC, B, idx);
-}
+// P at NC (the input): group.cuh's sched_lane<W, NC>.
 
 #ifdef __CUDACC__
 template <int W, int NC>
@@ -60,7 +52,7 @@ DI void ladder_block(const uint32_t* in, uint32_t* out,
   const GroupProg g = group_prog(prog);
   int64_t idx;
   Fp* lane = group_enter<W>(smem, consts, g.nslots, B, &idx);
-  if (lane) ladder_lane<W, NC>(g, lane, smem, in, out, sched, nsched, B, idx);
+  if (lane) sched_lane<W, NC>(g, lane, smem, in, out, sched, nsched, B, idx);
 }
 
 #define K2_KERNEL(name, W, NC)                                               \
@@ -106,7 +98,7 @@ static int ladder_host(const void* in, void* out, const void* consts,
   return group_host_run(
       (const int32_t*)prog, (const uint32_t*)consts, B,
       [&](const GroupProg& g, Fp* lane, const Fp* cs, int64_t idx) {
-        ladder_lane<W, NC>(g, lane, cs, (const uint32_t*)in, (uint32_t*)out,
+        sched_lane<W, NC>(g, lane, cs, (const uint32_t*)in, (uint32_t*)out,
                            (const int32_t*)sched, nsched, B, idx);
       });
 }

@@ -1,53 +1,92 @@
-// K5: Fp2 x^e for a fixed exponent, square-and-multiply MSB-first.
+// K5: Fp2 x^e for a fixed public exponent: a Frobenius-split windowed chain
+// on a thread group a lane.
 //
 // Replaces drand_tpu/ops/pallas_field.py _pow2_call (_pow2_math): the
-// E2 = (p^2 - 9)/16 scan (758 bits) that G2 signature decompression and
-// both SSWU maps of hash-to-G2 share, at width 3N.
+// E2 = (p^2 - 9)/16 scan that G2 signature decompression and both SSWU
+// maps of hash-to-G2 share, at width 3N, 2N and the threshold paths'.
 //
-// Bound on this card: integer multiply-adds (an Fp2 squaring is 2 Fp
-// products, an Fp2 product 3: about 1,500 + 3 x popcount(e) Fp products a
-// lane, 192 bytes in and out).  Design: one thread per lane, the base and
-// the accumulator in registers (the tower's __noinline__ Fp2 products take
-// them by reference); the exponent bits are one small device array read by
-// every thread, so the zero-bit skip is a uniform branch, as in pow.cu.
+// Bound on this card: the latency of each lane's chain of dependent
+// products where a launch leaves the card idle, the instruction rate where
+// the lanes fill it.  Design: the chain is shortened, then spread over a
+// group (group.cuh, as K2).  x^p = conj(x) in Fp2, so with e = a p + b,
+// x^e = conj(x)^a x^b: fp12prog.pow2_schedule walks the window digits of
+// a and b at once over one table of odd powers x, x^3, ..., x^15, a digit
+// of a multiplying by a table entry's conjugate (its sign folded into the
+// product fragment).  For E2 that is 380 Fp2 squarings and 157 products
+// where square-and-multiply ran 758 and 366.  The fragments ("pow2":
+// INIT, the table and acc = 1; SQR, 2 Fp products; MUL[k] and MULC[k], 4)
+// are each one phase of independent products and one linear phase, and
+// the lane walks the schedule that e's digits give, passed with the
+// launch: every branch is on the program or the schedule, the same for
+// every lane, none on a lane's data.  2 threads a lane: an SQR's two
+// products take one round, a MUL's four two; 1 and 4 threads were slower
+// at every main-path shape (PERF.md).  The wrapper passes the width,
+// checked here.
 
-#include "field.cuh"
+#include "group.cuh"
 
 using namespace drand;
 
-DI void pow2_lane(const uint32_t* x, uint32_t* out, const int32_t* bits,
-                  int nbits, int64_t B, int64_t lane) {
-  Fp2 a, acc;
-  load_fp2(a, x, 0, B, lane);
-  fp2_one(acc);
-  for (int i = 0; i < nbits; i++) {
-    fp2_sqr(acc, acc);
-    if (bits[i]) fp2_mul(acc, acc, a);
-  }
-  store_fp2(out, 0, acc, B, lane);
-}
+// threads a lane (fp12prog.WIDTH["pow2"])
+constexpr int K5_WIDTH = 2;
+
+// fp12prog's "pow2" slots: the accumulator at 0-1 (the output), x at 2-3
+// (the input): group.cuh's sched_lane<W, 2>.
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(128) k_pow2(const uint32_t* x,
-                                              uint32_t* out,
-                                              const int32_t* bits, int nbits,
-                                              int64_t B) {
-  const int64_t lane = DRAND_LANE_INDEX();
-  if (lane < B) pow2_lane(x, out, bits, nbits, B, lane);
+template <int W>
+DI void pow2_block(const uint32_t* in, uint32_t* out, const uint32_t* consts,
+                   const int32_t* prog, const int32_t* sched, int nsched,
+                   int64_t B) {
+  extern __shared__ __align__(16) Fp smem[];
+  const GroupProg g = group_prog(prog);
+  int64_t idx;
+  Fp* lane = group_enter<W>(smem, consts, g.nslots, B, &idx);
+  if (lane) sched_lane<W, 2>(g, lane, smem, in, out, sched, nsched, B, idx);
 }
 
-extern "C" int drand_pow2(const void* x, void* out, const void* bits,
-                          int nbits, int64_t B, void* stream) {
-  DRAND_LAUNCH(k_pow2, B, 128, stream, (const uint32_t*)x, (uint32_t*)out,
-               (const int32_t*)bits, nbits, B);
+#define K5_KERNEL(name, W)                                                   \
+  __global__ void __launch_bounds__(GROUP_THREADS)                          \
+      name(const uint32_t* in, uint32_t* out, const uint32_t* consts,       \
+           const int32_t* prog, const int32_t* sched, int nsched,            \
+           int64_t B) {                                                      \
+    pow2_block<W>(in, out, consts, prog, sched, nsched, B);                  \
+  }
+K5_KERNEL(k_pow2, K5_WIDTH)
+
+#define K5_ARGS                                                              \
+  (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)consts,             \
+      (const int32_t*)prog, (const int32_t*)sched, nsched, B
+
+extern "C" int drand_pow2(const void* in, void* out, const void* consts,
+                          const void* prog, int nslots, int width,
+                          const void* sched, int nsched, int64_t B,
+                          void* stream) {
+  if (width == K5_WIDTH)
+    DRAND_GROUP_LAUNCH(k_pow2, K5_WIDTH, B, nslots, stream, K5_ARGS);
+  return 1;
 }
 #else
-extern "C" int drand_pow2(const void* x, void* out, const void* bits,
-                          int nbits, int64_t B, void* stream) {
+template <int W>
+static int pow2_host(const void* in, void* out, const void* consts,
+                     const void* prog, const void* sched, int nsched,
+                     int64_t B) {
+  return group_host_run(
+      (const int32_t*)prog, (const uint32_t*)consts, B,
+      [&](const GroupProg& g, Fp* lane, const Fp* cs, int64_t idx) {
+        sched_lane<W, 2>(g, lane, cs, (const uint32_t*)in, (uint32_t*)out,
+                         (const int32_t*)sched, nsched, B, idx);
+      });
+}
+
+extern "C" int drand_pow2(const void* in, void* out, const void* consts,
+                          const void* prog, int nslots, int width,
+                          const void* sched, int nsched, int64_t B,
+                          void* stream) {
+  (void)nslots;
   (void)stream;
-  for (int64_t lane = 0; lane < B; lane++)
-    pow2_lane((const uint32_t*)x, (uint32_t*)out, (const int32_t*)bits, nbits,
-              B, lane);
-  return 0;
+  if (width == K5_WIDTH)
+    return pow2_host<K5_WIDTH>(in, out, consts, prog, sched, nsched, B);
+  return 1;
 }
 #endif

@@ -1,5 +1,5 @@
 """Fp programs of the group-per-lane kernels: K3 and K4 (Fp12), K6 and K2
-(points).
+(points), K5 (an Fp2 power chain).
 
 K3 (``csrc/miller.cu``) and K4 (``csrc/finalexp.cu``) run one warp,
 ``GROUP`` = 32 threads, per pairing lane; K6 (``csrc/ladder_var.cu``) and
@@ -23,8 +23,10 @@ the tower inverse down to one Fp inverse (which K4 computes on one thread
 by the binary extended gcd), the Miller steps with the field values of
 ``kernels.dbl_step`` / ``kernels.add_step``, K6's ladder step (the
 Jacobian double and complete add of ``curve.DevCurve`` over Fp (G1) or Fp2
-(G2) and the selects that pick the step's result), and K2's double and
-complete add, which the bits of its public scalar schedule.  Sums are kept
+(G2) and the selects that pick the step's result), K2's double and
+complete add, which the bits of its public scalar schedule, and K5's Fp2
+squaring and products by a table of odd powers or their conjugates, which
+the window digits of its public exponent schedule.  Sums are kept
 as linear forms over computed values and built as balanced add trees only
 where a product or an output needs them.  Each fragment is then cut into
 phases (products as early as they can run, each linear op between two
@@ -1006,6 +1008,79 @@ def _k2_add(g, n):
                                    lambda: g.inp(lay["FIN2"])))
 
 
+# K5: Fp2 x^e for a static public e (csrc/pow2.cu).  x^p = conj(x) in Fp2
+# (p = 3 mod 4), so with e = a p + b, x^e = conj(x)^a x^b: one accumulator
+# squared once a bit of max(a, b), and multiplied at the sliding-window
+# digits of b by a table entry x^d, at those of a by its conjugate, with
+# one table of the odd powers x, x^3, ..., x^(2^w - 1).  For the G2 sqrt
+# exponent E2 = (p^2 - 9)/16, a has 377 bits and b 381: 380 squarings and
+# 157 products where square-and-multiply over E2's 758 bits ran 758 and
+# 366.  Slots: the accumulator at 0 (the output), the table from 2 on
+# (entry 0 is x, the input), a pair each.
+POW2_WINDOW = 4                   # odd powers up to x^15 (PERF.md)
+POW2_INIT, POW2_SQR = 0, 1
+
+
+def _pow2_entries(w):
+    return 1 << (w - 1)
+
+
+def pow2_frag(k, conj, w=POW2_WINDOW):
+    """The fragment that multiplies the accumulator by table entry k, or
+    by its conjugate."""
+    return 2 + k + (_pow2_entries(w) if conj else 0)
+
+
+def _pow2_entry(g, k):
+    return (g.inp(2 + 2 * k), g.inp(3 + 2 * k))
+
+
+def _pow2_init(g, w):
+    """acc = 1; the table x^(2k+1) = x^(2k-1) x^2 from x (entry 0)."""
+    g.out(0, g.const(ONE_ROW))
+    g.out(1, g.zero())
+    t = _pow2_entry(g, 0)
+    if w > 1:
+        x2 = _mat(g, _fp2_sqr(t))
+        for k in range(1, _pow2_entries(w)):
+            t = _mat(g, _fp2_mul(t, x2))
+            g.out(2 + 2 * k, t[0])
+            g.out(3 + 2 * k, t[1])
+
+
+def _pow2_acc(g):
+    return (g.inp(0), g.inp(1))
+
+
+def _pow2_sqr(g):
+    """acc^2 = ((a0 + a1)(a0 - a1), (2 a0) a1): one linear phase, one
+    product phase whose two products write the accumulator's slots."""
+    a = _pow2_acc(g)
+    g.out(0, (a[0] + a[1]) * (a[0] - a[1]))
+    g.out(1, (a[0] + a[0]) * a[1])
+
+
+def _pow2_mul(g, k, conj):
+    """acc * T[k], or acc * conj(T[k]) with the conjugate's sign folded
+    into the sums: four products, then one linear phase, c0 = a0 b0 -+ a1
+    b1, c1 = a0 b1 +- a1 b0 (the lower signs for conj).  Karatsuba's three
+    products need a linear phase before them and two after, and ran 4-7 %
+    slower (PERF.md)."""
+    a, b = _pow2_acc(g), _pow2_entry(g, k)
+    s = -1 if conj else 1
+    g.out(0, a[0] * b[0] - s * (a[1] * b[1]))
+    g.out(1, s * (a[0] * b[1]) + a[1] * b[0])
+
+
+def pow2_kind(w):
+    """KINDS entry of the K5 program at window w."""
+    h = _pow2_entries(w)
+    frags = [lambda g: _pow2_init(g, w), _pow2_sqr]
+    frags += [lambda g, k=k, c=c: _pow2_mul(g, k, c)
+              for c in (False, True) for k in range(h)]
+    return (2 + 2 * h, frags, (0, 0))
+
+
 KINDS = {
     "miller": (ML["N"], [_ml_init, _ml_dbl, _ml_add, _ml_fin], (0, 0)),
     "finalexp": (FE["N"], [_fe_pre, _fe_post, _fe_cyc, _fe_mulg, _fe_h1,
@@ -1022,16 +1097,19 @@ KINDS = {
     "fixed_g2": (K2[2]["N"], [lambda g: _k2_init(g, 2),
                               lambda g: _k2_dbl(g, 2),
                               lambda g: _k2_add(g, 2)], (0, 0)),
+    "pow2": pow2_kind(POW2_WINDOW),
 }
 # threads a lane: K3 / K4 a warp; K6 on G1 a quarter warp (no step phase
 # holds more than 8 products), on G2 half a warp (up to 18 Fp products a
 # phase; a whole warp ran slower, PERF.md); K2 a quarter warp (a double's
 # product phases hold at most 3 products on G1, 7 on G2; on G2 8 threads
 # were fastest, or within 2 %, at every K2 shape of the main paths:
-# tools/torch_group_variants.py, PERF.md).  csrc/ladder_var.cu and
-# csrc/ladder.cu compile the same widths and check them at launch.
+# tools/torch_group_variants.py, PERF.md); K5 2 threads (its squaring's
+# two products; 1 and 4 threads were slower at every K5 shape of the main
+# paths, the same tool).  csrc/ladder_var.cu, csrc/ladder.cu and
+# csrc/pow2.cu compile the same widths and check them at launch.
 WIDTH = {"miller": GROUP, "finalexp": GROUP, "ladder_g1": 8,
-         "ladder_g2": 16, "fixed_g1": 8, "fixed_g2": 8}
+         "ladder_g2": 16, "fixed_g1": 8, "fixed_g2": 8, "pow2": 2}
 # K2-G1's second width, for launches whose lanes fill the card, where idle
 # threads cost issue slots (kernels.fixed_width; csrc/ladder.cu)
 FILL_WIDTH = {"fixed_g1": 2}
@@ -1092,6 +1170,43 @@ INVERT = -1       # schedule entry: K4's Fp inverse, slot inv_in -> inv_out
 BIT_FLAG = -2     # schedule entry: K6 writes the step's bit as a flag
 
 
+def window_digits(e, w):
+    """Left-to-right sliding windows of e >= 0 at width w: [(position,
+    digit)] from the top, each digit odd and below 2^w, e = sum digit *
+    2^position, and a window's low bit above the next window's top."""
+    bits, out, i = bin(e)[2:], [], 0
+    if e == 0:
+        return out
+    while i < len(bits):
+        if bits[i] == "0":
+            i += 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        out.append((len(bits) - j, int(bits[i:j], 2)))
+        i = j
+    return out
+
+
+def pow2_schedule(e, w=POW2_WINDOW):
+    """K5's fragments for x^e, e >= 1: split e = a p + b; the digits of b
+    multiply by table entries, those of a by their conjugates, merged by
+    position; the accumulator starts at 1 and is squared from the top
+    digit's position down to 0."""
+    a, b = divmod(e, P)
+    digits = sorted([(pos, d, False) for pos, d in window_digits(b, w)]
+                    + [(pos, d, True) for pos, d in window_digits(a, w)],
+                    key=lambda t: -t[0])
+    out, at = [POW2_INIT], None
+    for pos, d, conj in digits:
+        if at is not None:
+            out += [POW2_SQR] * (at - pos)
+        out.append(pow2_frag(d >> 1, conj, w))
+        at = pos
+    return out + [POW2_SQR] * at
+
+
 def schedule(kind, xbits=None):
     """The fragments one lane runs, in order, for loop bits xbits (|x|
     after its leading one): the kernel walks this list, so the loops over
@@ -1099,7 +1214,10 @@ def schedule(kind, xbits=None):
     lane's scalar bits: its init, then for each bit, whatever it is, the
     bit's flag and a step (csrc/ladder_var.cu loops so itself).  K2's
     xbits are its public scalar's bits, the leading one included: its
-    init, then a double a bit and an add after each one bit."""
+    init, then a double a bit and an add after each one bit.  K5 ("pow2")
+    takes its exponent e in place of bits (pow2_schedule)."""
+    if kind == "pow2":
+        return pow2_schedule(xbits)
     if kind.startswith("ladder"):
         return [K6_INIT] + [BIT_FLAG, K6_STEP] * len(xbits)
     xbits = XBITS if xbits is None else xbits

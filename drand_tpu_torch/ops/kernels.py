@@ -6,6 +6,8 @@ recovery, both signature groups) has a hand-written CUDA C++ kernel
 (sources in ``csrc/``, target ``sm_90a``):
 
   K1 pow_fixed         <- pallas_field._pow_call          (csrc/pow.cu)
+     (a windowed chain from e's digits, one thread a lane; e = p - 2 runs
+      a constant-time safegcd inversion, csrc/field.cuh fp_inv)
   K2 scalar_mul_fixed  <- pallas_field._ladder_fixed_call (csrc/ladder.cu,
                                                            G1 and G2)
      (K2 runs a thread group per lane over fp12prog.py's point programs,
@@ -15,6 +17,8 @@ recovery, both signature groups) has a hand-written CUDA C++ kernel
      (K3 and K4 run a warp per pairing lane over shared-memory Fp programs
       that fp12prog.py writes and passes with the launch; csrc/group.cuh)
   K5 pow_fixed_fp2     <- pallas_field._pow2_call         (csrc/pow2.cu)
+     (a thread group per lane over fp12prog.py's "pow2" program: the
+      Frobenius split e = a p + b, scheduled by the window digits of a, b)
   K6 scalar_mul_bits   <- pallas_field._ladder_var_call   (csrc/ladder_var.cu,
                                                            G1 and G2)
      (K6 runs a thread group per lane over fp12prog.py's point programs,
@@ -181,14 +185,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (every pointer and the stream
     as c_void_p); each returns its cudaGetLastError()."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.drand_pow.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_pow.argtypes = [vp, vp, vp, i32, i32, i64, vp]
+    lib.drand_inv.argtypes = [vp, vp, i64, vp]
     lib.drand_ladder_g1.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32, i64,
                                     vp]
     lib.drand_miller.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
     lib.drand_finalexp.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
     lib.drand_sum_g1.argtypes = [vp, vp, i64, vp]
     lib.drand_glv_g1.argtypes = [vp, vp, vp, i32, i64, vp]
-    lib.drand_pow2.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_pow2.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32, i64, vp]
     lib.drand_ladder_g2.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32, i64,
                                     vp]
     lib.drand_sum_g2.argtypes = [vp, vp, i64, vp]
@@ -198,10 +203,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.drand_ladder_var_g2.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32,
                                         i64, vp]
     lib.drand_group_layout.argtypes = [i32, i32, vp]
-    for fn in (lib.drand_pow, lib.drand_ladder_g1, lib.drand_miller,
-               lib.drand_finalexp, lib.drand_sum_g1, lib.drand_glv_g1,
-               lib.drand_pow2, lib.drand_ladder_g2, lib.drand_sum_g2,
-               lib.drand_glv_g2, lib.drand_ladder_var_g1,
+    for fn in (lib.drand_pow, lib.drand_inv, lib.drand_ladder_g1,
+               lib.drand_miller, lib.drand_finalexp, lib.drand_sum_g1,
+               lib.drand_glv_g1, lib.drand_pow2, lib.drand_ladder_g2,
+               lib.drand_sum_g2, lib.drand_glv_g2, lib.drand_ladder_var_g1,
                lib.drand_ladder_var_g2, lib.drand_group_layout):
         fn.restype = ctypes.c_int
     return lib
@@ -255,11 +260,6 @@ def from_words(w, shape):
             for i in range(v.shape[0])]
 
 
-@lru_cache(maxsize=None)
-def bits_tensor(bits: tuple, device: str) -> torch.Tensor:
-    return torch.tensor(list(bits), dtype=torch.int32, device=device)
-
-
 def const_rows():
     """(30, 24) int64 limbs of the constant bundle, CONST_NAMES order."""
     from ..crypto.host import field as HF
@@ -280,16 +280,17 @@ def const_bundle(device: str) -> torch.Tensor:
 @lru_cache(maxsize=None)
 def program_tensor(kind: str, device: str) -> torch.Tensor:
     """fp12prog's int32 program table for K3 ("miller"), K4 ("finalexp"),
-    K6 ("ladder_g1", "ladder_g2") or K2 ("fixed_g1", "fixed_g2") on
-    `device`."""
+    K6 ("ladder_g1", "ladder_g2"), K2 ("fixed_g1", "fixed_g2") or K5
+    ("pow2") on `device`."""
     return torch.from_numpy(FP.program(kind)).to(device)
 
 
 @lru_cache(maxsize=None)
-def schedule_tensor(kind: str, xbits: tuple, device: str) -> torch.Tensor:
-    """The fragments a K3 / K4 lane runs for loop bits xbits, a K2 lane
-    for the bits of its scalar."""
-    return torch.tensor(FP.schedule(kind, list(xbits)), dtype=torch.int32,
+def schedule_tensor(kind: str, xbits, device: str) -> torch.Tensor:
+    """The fragments a K3 / K4 lane runs for loop bits xbits (a tuple), a
+    K2 lane for the bits of its scalar, a K5 lane for its exponent (an
+    int)."""
+    return torch.tensor(FP.schedule(kind, xbits), dtype=torch.int32,
                         device=device)
 
 
@@ -304,9 +305,9 @@ def _group_launch(fn, kind, x, out, dev, name):
 
 
 def group_layout(kind, width=None):
-    """(lanes a block, dynamic shared-memory bytes a block) of a K2, K3, K4
-    or K6 launch, as csrc/group.cuh computes them for the program's slots
-    and a width (default fp12prog.WIDTH)."""
+    """(lanes a block, dynamic shared-memory bytes a block) of a K2, K3,
+    K4, K5 or K6 launch, as csrc/group.cuh computes them for the program's
+    slots and a width (default fp12prog.WIDTH)."""
     out = (ctypes.c_int32 * 2)()
     _lib().drand_group_layout(FP.compiled(kind)[1],
                               width or FP.WIDTH[kind], out)
@@ -328,19 +329,57 @@ def pow_fixed_plain(a, e: int):
     return acc
 
 
+# K1's window: odd powers x .. x^(2^w - 1) in a table of at most 2^(w-1)
+# entries (csrc/pow.cu K1_TABLE); windows 4, 5 and 6 ran within 1-3 % of
+# each other at every main-path width, 3 5-8 % slower (PERF.md)
+K1_WINDOW = 5
+K1_SQR = -1             # a squaring in the digit schedule
+
+
+def pow_schedule(e: int, w: int = K1_WINDOW):
+    """K1's chain for x^e, e >= 1, from e's sliding-window digits
+    (fp12prog.window_digits): -> (schedule, table entries).  schedule[0]
+    is the first digit's entry (acc = x^digit); then K1_SQR for a squaring
+    and k >= 0 for a product by entry k (x^(2k+1)); the table holds the
+    entries up to the largest digit."""
+    digits = FP.window_digits(e, w)
+    sched, at = [digits[0][1] >> 1], digits[0][0]
+    for pos, d in digits[1:]:
+        sched += [K1_SQR] * (at - pos) + [d >> 1]
+        at = pos
+    sched += [K1_SQR] * at
+    return sched, max(d for _, d in digits) // 2 + 1
+
+
+@lru_cache(maxsize=None)
+def pow_schedule_tensor(e: int, device: str):
+    sched, ntab = pow_schedule(e)
+    return torch.tensor(sched, dtype=torch.int32, device=device), ntab
+
+
 def pow_fixed(a, e: int):
-    """a^e for a static exponent e >= 1 (Montgomery limbs in and out)."""
+    """a^e for a static exponent e >= 1 (Montgomery limbs in and out; the
+    kernel reads and writes the limb tensor itself).  On the card e = p -
+    2, the inverse (0 -> 0), runs the constant-time inversion; every other
+    e the windowed chain.  Both count as pow_fixed."""
+    assert e >= 1
     if not _on_card(a):
         return pow_fixed_plain(a, e)
-    shape = a.shape[:-1]
-    x = to_words([a])
+    if a.dtype != L.DTYPE:
+        raise TypeError(f"pow_fixed: limbs must be {L.DTYPE}, got {a.dtype}")
+    x = a.reshape(-1, L.NLIMB).contiguous()   # the limbs, no word layout
     out = torch.empty_like(x)
-    bits = bits_tensor(tuple(L.exp_bits(e)), str(a.device))
-    _check(_lib().drand_pow(x.data_ptr(), out.data_ptr(), bits.data_ptr(),
-                            bits.numel(), x.shape[-1], _stream(a.device)),
-           "pow_fixed")
-    _count("pow_fixed", e, x.shape[-1])
-    return from_words(out, shape)[0]
+    n = x.shape[0]
+    if e == INV_EXP:
+        _check(_lib().drand_inv(x.data_ptr(), out.data_ptr(), n,
+                                _stream(a.device)), "pow_fixed")
+    else:
+        sched, ntab = pow_schedule_tensor(e, str(a.device))
+        _check(_lib().drand_pow(x.data_ptr(), out.data_ptr(),
+                                sched.data_ptr(), sched.numel(), ntab, n,
+                                _stream(a.device)), "pow_fixed")
+    _count("pow_fixed", e, n)
+    return out.reshape(a.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -609,18 +648,25 @@ def pow_fixed_fp2_plain(a, e: int):
 
 
 def pow_fixed_fp2(a, e: int):
-    """a^e in Fp2 for a static exponent e >= 1 (an Fp2 pair of Montgomery
-    limb tensors in and out)."""
+    """a^e in Fp2 for a static public exponent e >= 1 (an Fp2 pair of
+    Montgomery limb tensors in and out).  The kernel's schedule follows
+    e's window digits (fp12prog.pow2_schedule)."""
+    assert e >= 1
     if not _on_card(a[0]):
         return pow_fixed_fp2_plain(a, e)
     shape = torch.broadcast_shapes(a[0].shape, a[1].shape)[:-1]
     x = to_words([c.expand(shape + (L.NLIMB,)) for c in a])
     out = torch.empty_like(x)
-    bits = bits_tensor(tuple(L.exp_bits(e)), str(x.device))
-    _check(_lib().drand_pow2(x.data_ptr(), out.data_ptr(), bits.data_ptr(),
-                             bits.numel(), x.shape[-1], _stream(x.device)),
-           "pow_fixed_fp2")
-    _count("pow_fixed_fp2", e, x.shape[-1])
+    n = x.shape[-1]
+    dev = str(x.device)
+    sched = schedule_tensor("pow2", e, dev)
+    _check(_lib().drand_pow2(x.data_ptr(), out.data_ptr(),
+                             const_bundle(dev).data_ptr(),
+                             program_tensor("pow2", dev).data_ptr(),
+                             FP.compiled("pow2")[1], FP.WIDTH["pow2"],
+                             sched.data_ptr(), sched.numel(), n,
+                             _stream(x.device)), "pow_fixed_fp2")
+    _count("pow_fixed_fp2", e, n)
     return tuple(from_words(out, shape))
 
 

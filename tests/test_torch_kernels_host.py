@@ -193,9 +193,9 @@ def test_miller_kernel_add_steps(kernel_path, monkeypatch, n):
 @pytest.mark.parametrize("kind,tail,width", [
     ("miller", 7, None), ("finalexp", 5, None), ("ladder_g1", 5, None),
     ("ladder_g2", 5, None), ("fixed_g1", 7, None), ("fixed_g1", 7, 2),
-    ("fixed_g2", 7, None)])
+    ("fixed_g2", 7, None), ("pow2", 9, None)])
 def test_group_layout(kernel_path, kind, tail, width):
-    """The layout csrc/group.cuh gives a K2 / K3 / K4 / K6 launch: at
+    """The layout csrc/group.cuh gives a K2 / K3 / K4 / K5 / K6 launch: at
     least one lane a block, whole warps of lanes, the lanes' slots and the
     constants under 48 KB (no opt-in), and the tail widths the tests run
     are no multiple of it."""
@@ -580,3 +580,111 @@ def test_ladder_group_kernel_refuses_an_uncompiled_width(kernel_path,
     with pytest.raises(RuntimeError, match="scalar_mul_fixed_g2"):
         K.scalar_mul_fixed(DC.encode_g2_points(_g2_points()), -X)
     assert kernel_path["scalar_mul_fixed_g2"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K1: the windowed chain (any e) and the constant-time inversion (e = p - 2)
+# ---------------------------------------------------------------------------
+
+R_MOD_P = (1 << 384) % P
+K1_EXPS = {"(p-3)/4": (P - 3) // 4, "p-2": P - 2, "5": 5, "1": 1, "2": 2,
+           "2^64-1": (1 << 64) - 1}
+K1_EXPS.update({f"random {b} bits": RNG.getrandbits(b) | 1 << (b - 1)
+                for b in (2, 17, 200, 381)})
+
+
+@pytest.fixture(scope="module")
+def k1_lanes():
+    """0, 1, p - 1, R mod p (1 in Montgomery form is R^2 mod p as limbs)
+    and random values; the plain chain's output for each exponent."""
+    vals = [0, 1, P - 1, R_MOD_P] + [RNG.randrange(P) for _ in range(4)]
+    x = L.encode_mont(vals)
+    return vals, x, {e: K.pow_fixed_plain(x, e) for e in K1_EXPS.values()}
+
+
+@pytest.mark.parametrize("e", list(K1_EXPS.values()), ids=list(K1_EXPS))
+def test_pow_window_kernel_matches_plain_and_pow(kernel_path, k1_lanes, e):
+    """Both K1 entries (the windowed chain, the inversion for p - 2) equal
+    the plain square-and-multiply and Python's pow on edge and random
+    values."""
+    vals, x, plain = k1_lanes
+    got = K.pow_fixed(x, e)
+    assert K.SHAPES == {("pow_fixed", e, len(vals)): 1}
+    _same([got], [plain[e]])
+    assert L.decode_mont(got) == [pow(v, e, P) for v in vals]
+
+
+def test_inverse_kernel_matches_python_pow(kernel_path):
+    """The constant-time inversion on 1,000 seeded random values and the
+    edge values, against pow(x, p - 2, p): 0 -> 0."""
+    vals = [0, 1, 2, P - 1, P - 2, R_MOD_P, (P + 1) // 2, (1 << 380) % P,
+            (1 << 32) - 1]
+    vals += [RNG.randrange(P) for _ in range(1000)]
+    got = L.decode_mont(K.pow_fixed(L.encode_mont(vals), P - 2))
+    assert got == [pow(v, P - 2, P) for v in vals]
+    assert kernel_path["pow_fixed"] == 1
+
+
+def test_pow_fixed_sends_p_minus_2_to_the_inversion(kernel_path, monkeypatch,
+                                                    host_lib):
+    """e = p - 2 launches drand_inv and nothing else; other exponents the
+    chain, with the table size the schedule asks for; the chain's entry
+    refuses a table larger than it compiles."""
+    calls = []
+    for name in ("drand_pow", "drand_inv"):
+        fn = getattr(host_lib, name)
+        monkeypatch.setattr(host_lib, name,
+                            lambda *a, _f=fn, _n=name: calls.append(
+                                (_n, a[4] if _n == "drand_pow" else None))
+                            or _f(*a))
+    x = _rand_fp(3)
+    K.pow_fixed(x, P - 2)
+    K.pow_fixed(x, (P - 3) // 4)
+    K.pow_fixed(x, 5)
+    assert calls == [("drand_inv", None), ("drand_pow", 16), ("drand_pow", 3)]
+    out = torch.empty_like(x)
+    sched = torch.zeros(1, dtype=torch.int32)
+    assert host_lib.drand_pow(x.data_ptr(), out.data_ptr(), sched.data_ptr(),
+                              1, 2 ** (K.K1_WINDOW - 1) + 1, 3, None) == 1
+
+
+# ---------------------------------------------------------------------------
+# K5 on the group programs: the Frobenius split, each compiled width
+# ---------------------------------------------------------------------------
+
+K5_EXPS = {"E2": E2, "5": 5, "1": 1, "p": P, "p+1": P + 1,
+           "random > p": RNG.randrange(P + 2, P * P)}
+
+
+@pytest.fixture(scope="module")
+def k5_lanes():
+    """0, 1, u, two values with c1 = 0 and random values; the plain
+    chain's output for each exponent."""
+    vals = [(0, 0), (1, 0), (0, 1), (P - 1, 0), (RNG.randrange(P), 0)]
+    vals += [(RNG.randrange(P), RNG.randrange(P)) for _ in range(4)]
+    x = tuple(L.encode_mont([v[c] for v in vals]) for c in (0, 1))
+    return vals, x, {e: K.pow_fixed_fp2_plain(x, e)
+                     for e in K5_EXPS.values()}
+
+
+@pytest.mark.parametrize("e", list(K5_EXPS.values()), ids=list(K5_EXPS))
+def test_pow2_group_kernel_matches_plain_and_host(kernel_path, k5_lanes, e):
+    """K5's C++ interpreter, 9 lanes (no multiple of a block's lanes),
+    equals the plain square-and-multiply and host fp2_pow: e < p (no
+    conjugate digits), e = p (one), p + 1 (the norm) and a random e > p."""
+    vals, x, plain = k5_lanes
+    got = K.pow_fixed_fp2(x, e)
+    assert K.SHAPES == {("pow_fixed_fp2", e, len(vals)): 1}
+    _same(got, plain[e])
+    assert list(zip(*[L.decode_mont(c) for c in got])) == \
+        [HF.fp2_pow(v, e) for v in vals]
+
+
+def test_pow2_group_kernel_refuses_an_uncompiled_width(kernel_path,
+                                                       monkeypatch):
+    """A width csrc/pow2.cu does not compile (4, measured slower) is
+    refused at the launch."""
+    monkeypatch.setitem(FP.WIDTH, "pow2", 4)
+    with pytest.raises(RuntimeError, match="pow_fixed_fp2"):
+        K.pow_fixed_fp2(_rand_fp2(3), E2)
+    assert kernel_path["pow_fixed_fp2"] == 0

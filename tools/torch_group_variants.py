@@ -1,27 +1,40 @@
-"""Time K2's and K6's point programs in the forms and at the widths the
-H100 port (drand_tpu_torch) does not ship, beside the ones it ships.
+"""Time the group-per-lane kernels and K1 in the forms and at the widths
+the H100 port (drand_tpu_torch) does not ship, beside the ones it ships.
 
-What it measures, on one CUDA card (K2 with k = |x| at the lane counts the
-main paths launch it at: 2048 for signing and partials, 8192 and 14,336 in
-the verify passes):
+What it measures, on one CUDA card:
 
-  * K2 at every width a lane could run: G1 at 2, 4, 8 and 16 threads a
-    lane, G2 at 4, 8, 16 and 32 ("fixed": the shipped fragments);
-  * K2 with one fused double-and-add fragment on a one bit ("fused");
-  * K2 and K6 with DevCurve.double's textbook form, D = 2((X + B)^2 - A -
-    C) ("textbook"), where fp12prog._pt_double computes D = X * 4B; K6 at
-    its main-path shapes (256 bits at 2048 lanes; 130 bits at 28,672 on
-    G1, 66 bits at 57,344 on G2) through the shipped kernel, whose
-    program table is passed with the launch.
+  k2: K2 with k = |x| at the lane counts the main paths launch it at
+    (2048 for signing and partials, 8192 and 14,336 in the verify
+    passes): G1 at 2, 4, 8 and 16 threads a lane, G2 at 4, 8, 16 and 32
+    ("fixed": the shipped fragments); one fused double-and-add fragment
+    on a one bit ("fused"); and K2 and K6 with DevCurve.double's textbook
+    form, D = 2((X + B)^2 - A - C) ("textbook"), where fp12prog._pt_double
+    computes D = X * 4B; K6 at its main-path shapes (256 bits at 2048
+    lanes; 130 bits at 28,672 on G1, 66 bits at 57,344 on G2) through the
+    shipped kernel, whose program table is passed with the launch.
+  k5: K5 with e = (p^2 - 9)/16 at its main-path lane counts (4096 for
+    signing, 14,336 for recovery, 18,432 for partials, 24,576 in the
+    verify passes), at 1, 2 and 4 threads a lane (entries compiled from
+    csrc/pow2.cu's lane code), with the shipped program (window 4, the
+    schoolbook Fp2 product), window 5, and the Karatsuba product.
+  k1: K1 with e = (p-3)/4 at 1, 4096, 18,432 and 24,576 lanes: windows 3,
+    4, 5 and 6 (a table of 4, 8, 16, 32 odd powers), blocks of 32, 64 and
+    128 threads at window 5, and field.cuh's squaring against fp_mul(a,
+    a) (the same source built with -DDRAND_SQR_AS_MUL); and e = p - 2 at
+    1, 8192 and 24,576 lanes: the Fermat window chain against the shipped
+    constant-time inversion.
 
 Every K2 variant's output is compared limb for limb with
 kernels.scalar_mul_fixed_plain at 2048 lanes and with the shipped wrapper
-at every lane count; every K6 variant's with the shipped K6 kernel (which
-chip_smoke.py holds against its plain version).  Times are CUDA events,
-the median of --reps launches after one warm-up.  The extra K2 widths
-compile from csrc/ladder.cu into build/variants/<hash>/.
+at every lane count; every K6, K5 and K1 variant's with the shipped
+kernel's (which chip_smoke.py holds against its plain version), and K5's
+and K1's shipped output with the plain version at the narrowest count.
+Times are CUDA events, the median of --reps launches after one warm-up.
+The extra entries compile from csrc/ladder.cu, csrc/pow2.cu and
+csrc/pow.cu into build/variants/<hash>/.
 
-  python3 tools/torch_group_variants.py [--reps 5] [--out FILE]
+  python3 tools/torch_group_variants.py [--reps 5] [--what k2,k5,k1]
+                                        [--out FILE]
 
 Prints one JSON object a line; the last is {"ok": true} or {"ok": false}
 (exit 1 on a mismatch, and without a CUDA card).
@@ -42,6 +55,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 WIDTHS = {1: (2, 4, 8, 16), 2: (4, 8, 16, 32)}   # threads a lane, by curve
 K2_LANES = (2048, 8192, 14336)
 K6_SHAPES = {1: ((256, 2048), (130, 28672)), 2: ((256, 2048), (66, 57344))}
+K5_LANES = (4096, 14336, 18432, 24576)
+K1_LANES = (1, 4096, 18432, 24576)
+K1_INV_LANES = (1, 8192, 24576)
+K1_WINDOWS = (3, 4, 5, 6)
+K1_THREADS = (32, 64, 128)
 
 
 def extra_source():
@@ -63,19 +81,60 @@ def extra_source():
     return "\n".join(lines + calls + ["  return 1;", "}", "#endif", ""])
 
 
-def build_variants(K):
-    """Compile extra_source() (cached by its text and the kernels' hash);
-    -> (library, ptxas statistics per entry)."""
-    src = extra_source()
-    h = hashlib.sha256((src + K.build_hash()).encode()).hexdigest()[:16]
+def k1_source():
+    """A K1 chain entry for every window in K1_WINDOWS (128 threads a
+    block) and every block size in K1_THREADS (window 5), from
+    csrc/pow.cu's own lane code, and one C entry that launches the one
+    asked for."""
+    lines, calls = ['#include "pow.cu"', "#ifdef __CUDACC__"], []
+    shapes = {(w, 128) for w in K1_WINDOWS} | {(5, t) for t in K1_THREADS}
+    for w, t in sorted(shapes):
+        name = f"kv_pow_w{w}_t{t}"
+        lines.append(f"K1_KERNEL({name}, {1 << (w - 1)}, {t})")
+        calls.append(f"  if (window == {w} && threads == {t})\n"
+                     f"    DRAND_LAUNCH({name}, B, {t}, stream, "
+                     "(const int64_t*)x, (int64_t*)out, "
+                     "(const int32_t*)sched, nsched, ntab, B);")
+    lines.append(
+        'extern "C" int drand_variant_pow(int window, int threads, '
+        "const void* x, void* out, const void* sched, int nsched, int ntab, "
+        "int64_t B, void* stream) {")
+    return "\n".join(lines + calls + ["  return 1;", "}", "#endif", ""])
+
+
+K5_WIDTHS = (1, 2, 4)
+
+
+def k5_source():
+    """A K5 entry for every width in K5_WIDTHS, from csrc/pow2.cu's own
+    lane code, and one C entry that launches the one asked for."""
+    lines, calls = ['#include "pow2.cu"', "#ifdef __CUDACC__"], []
+    for w in K5_WIDTHS:
+        lines.append(f"K5_KERNEL(kv_pow2_w{w}, {w})")
+        calls.append(f"  if (width == {w})\n"
+                     f"    DRAND_GROUP_LAUNCH(kv_pow2_w{w}, {w}, B, nslots, "
+                     "stream, K5_ARGS);")
+    lines.append(
+        'extern "C" int drand_variant_pow2(int width, const void* in, '
+        "void* out, const void* consts, const void* prog, int nslots, "
+        "const void* sched, int nsched, int64_t B, void* stream) {")
+    return "\n".join(lines + calls + ["  return 1;", "}", "#endif", ""])
+
+
+def build_lib(K, src, tag, flags=()):
+    """Compile src into build/variants/<hash>/ (cached by its text, the
+    flags and the kernels' hash); -> (ctypes library, ptxas statistics
+    per kv_ entry)."""
+    h = hashlib.sha256((src + " ".join(flags) + K.build_hash()).encode()
+                       ).hexdigest()[:16]
     d = K.BUILD_ROOT.parent / "variants" / h
-    lib = d / "libdrand_variants.so"
+    lib = d / f"libdrand_{tag}.so"
     if not lib.exists():
         d.mkdir(parents=True, exist_ok=True)
-        (d / "variants.cu").write_text(src)
-        r = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-Xptxas", "-v",
-                            "-shared", "-I", str(K.CSRC),
-                            str(d / "variants.cu"), "-o", str(lib)],
+        (d / f"{tag}.cu").write_text(src)
+        r = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, *flags, "-Xptxas",
+                            "-v", "-shared", "-I", str(K.CSRC),
+                            str(d / f"{tag}.cu"), "-o", str(lib)],
                            capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{r.stdout}{r.stderr}")
@@ -84,18 +143,48 @@ def build_variants(K):
     for ln in (d / "build.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            entry = m.group(1) if "kv_g" in m.group(1) else None
+            entry = m.group(1) if "kv_" in m.group(1) else None
         elif entry and "stack frame" in ln:
             stats[entry] = dict(zip(("stack", "spill_stores", "spill_loads"),
                                     map(int, re.findall(r"(\d+) bytes", ln))))
         elif entry and "Used" in ln:
             stats[entry]["registers"] = int(
                 re.search(r"Used (\d+) registers", ln).group(1))
+    return ctypes.CDLL(str(lib)), stats
+
+
+def build_variants(K):
+    """The K2 widths' library: -> (library, ptxas statistics per entry)."""
+    cdll, stats = build_lib(K, extra_source(), "variants")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    cdll = ctypes.CDLL(str(lib))
     cdll.drand_variant_ladder.argtypes = [i32, vp, vp, vp, vp, i32, i32, vp,
                                           i32, i64, vp]
     cdll.drand_variant_ladder.restype = ctypes.c_int
+    return cdll, stats
+
+
+def build_k5(K):
+    """The K5 widths' library."""
+    cdll, stats = build_lib(K, k5_source(), "k5")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    cdll.drand_variant_pow2.argtypes = [i32, vp, vp, vp, vp, i32, vp, i32,
+                                        i64, vp]
+    cdll.drand_variant_pow2.restype = ctypes.c_int
+    return cdll, stats
+
+
+def build_k1(K, sqr_as_mul):
+    """The K1 windows' and block sizes' library, with field.cuh's squaring
+    or (sqr_as_mul) fp_mul(a, a)."""
+    flags = ("-DDRAND_SQR_AS_MUL",) if sqr_as_mul else ()
+    cdll, stats = build_lib(K, k1_source(),
+                            "k1_mulsqr" if sqr_as_mul else "k1", flags)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    cdll.drand_variant_pow.argtypes = [i32, i32, vp, vp, vp, i32, i32, i64,
+                                       vp]
+    cdll.drand_variant_pow.restype = ctypes.c_int
+    cdll.drand_inv.argtypes = [vp, vp, i64, vp]
+    cdll.drand_inv.restype = ctypes.c_int
     return cdll, stats
 
 
@@ -143,8 +232,11 @@ def variant_programs(FP):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--what", default="k2,k5,k1",
+                    help="which kernels' variants, comma-separated")
     ap.add_argument("--out", default=None, help="also write the lines here")
     args = ap.parse_args()
+    what = set(args.what.split(","))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -173,9 +265,6 @@ def main():
           "nvidia_smi": smi[0] if smi else None})
     dev = "cuda"
     K._lib()
-    vlib, ptxas = build_variants(K)
-    emit({"ptxas": ptxas})
-    variant_programs(FP)
 
     def timed(fn):
         fn()
@@ -202,6 +291,24 @@ def main():
 
     random.seed(20261017)
     consts = K.const_bundle(dev)
+    ok = True
+    if "k2" in what:
+        ok &= run_k2(K, FP, L, DC, HC, R, X, dev, consts, emit, timed, words,
+                     layout)
+    if "k5" in what:
+        ok &= run_k5(K, FP, dev, consts, emit, timed, layout)
+    if "k1" in what:
+        ok &= run_k1(K, dev, emit, timed)
+    emit({"ok": bool(ok)})
+    return 0 if ok else 1
+
+
+def run_k2(K, FP, L, DC, HC, R, X, dev, consts, emit, timed, words, layout):
+    """K2's widths, fragments and double; K6's double."""
+    import torch
+    vlib, ptxas = build_variants(K)
+    emit({"ptxas": ptxas})
+    variant_programs(FP)
     ok = True
     k = -X
     xbits = L.exp_bits(k)
@@ -281,8 +388,156 @@ def main():
                 row[f"{form} layout"] = layout(int(tab[0]), FP.WIDTH[kind])
             emit({"k6": f"G{n}", "bits": nbits, "lanes": lanes,
                   "threads_per_lane": FP.WIDTH[kind], "ms": row})
-    emit({"ok": bool(ok)})
-    return 0 if ok else 1
+    return ok
+
+
+def karatsuba_mul(g, k, conj):
+    """K5's product by table entry k (or its conjugate) as Karatsuba over
+    Fp2: t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 -+ b1); c0 = t0 -+ t1,
+    c1 = t2 - t0 -+ t1 (the lower signs for conj): three products, a
+    linear phase before them and two after, where fp12prog._pow2_mul's
+    schoolbook form runs four products and one linear phase."""
+    from drand_tpu_torch.ops import fp12prog as FP
+    a, b = FP._pow2_acc(g), FP._pow2_entry(g, k)
+    s = -1 if conj else 1
+    t0, t1 = a[0] * b[0], a[1] * b[1]
+    t2 = (a[0] + a[1]) * (b[0] + s * b[1])
+    g.out(0, t0 - s * t1)
+    g.out(1, t2 - t0 - s * t1)
+
+
+def run_k5(K, FP, dev, consts, emit, timed, layout):
+    """K5 at E2 at each width in K5_WIDTHS, with the shipped program
+    (window 4, the schoolbook product), window 5 and the Karatsuba
+    product."""
+    import torch
+    from drand_tpu_torch.crypto.host.params import P
+    e = (P * P - 9) // 16
+    vlib, ptxas = build_k5(K)
+    emit({"k5_ptxas": ptxas})
+    forms = {"shipped": ("pow2", FP.POW2_WINDOW),
+             "w5": ("pow2_w5", 5), "karatsuba": ("pow2_karatsuba", 4)}
+    FP.KINDS["pow2_w5"] = FP.pow2_kind(5)
+    FP.KINDS["pow2_karatsuba"] = FP.pow2_kind(4)
+    shipped = FP._pow2_mul
+    FP._pow2_mul = karatsuba_mul
+    try:
+        FP.program("pow2_karatsuba")
+    finally:
+        FP._pow2_mul = shipped
+    progs = {}
+    for form, (kind, w) in forms.items():
+        tab = FP.program(kind)
+        sched = FP.pow2_schedule(e, w)
+        progs[form] = (torch.from_numpy(tab).to(dev), int(tab[0]),
+                       torch.tensor(sched, dtype=torch.int32, device=dev))
+        emit({"k5_program": form, "window": w, "slots": int(tab[0]),
+              "schedule": len(sched),
+              "lane_counts_at_width": {
+                  wd: FP.lane_counts("pow2", e, wd) if kind == "pow2"
+                  else None for wd in K5_WIDTHS},
+              "layout": {wd: layout(int(tab[0]), wd) for wd in K5_WIDTHS}})
+    ok = True
+    for lanes in K5_LANES:
+        x = (rand_fp(lanes, dev), rand_fp(lanes, dev))
+        words = K.to_words(list(x))
+        ref = K.to_words(list(K.pow_fixed_fp2(x, e)))
+        if lanes == K5_LANES[0]:
+            plain = K.to_words(list(K.pow_fixed_fp2_plain(x, e)))
+            err = int((ref - plain).abs().max())
+            emit({"check": f"K5 shipped vs plain at {lanes}",
+                  "max_abs_err": err})
+            ok &= err == 0
+        row = {"shipped_wrapper": timed(lambda: K.pow_fixed_fp2(x, e))}
+        for form, (prog, nslots, sched) in progs.items():
+            for wd in K5_WIDTHS:
+                if layout(nslots, wd)["lanes_per_block"] < 1:
+                    continue          # a whole warp of lanes over 48 KB
+                def run():
+                    out = torch.empty_like(words)
+                    K._check(vlib.drand_variant_pow2(
+                        wd, words.data_ptr(), out.data_ptr(),
+                        consts.data_ptr(), prog.data_ptr(), nslots,
+                        sched.data_ptr(), sched.numel(), lanes,
+                        K._stream(words.device)), f"{form} at {wd}")
+                    return out
+                err = int((run() - ref).abs().max())
+                ok &= err == 0
+                row[f"{form} w{wd}"] = timed(run)
+                row[f"{form} w{wd} max_abs_err"] = err
+        emit({"k5": "(p^2-9)/16", "lanes": lanes, "ms": row})
+    return ok
+
+
+def rand_fp(m, dev):
+    """m random Montgomery Fp elements on the card (16-bit limbs, the top
+    one below p's)."""
+    import torch
+    from drand_tpu_torch.crypto.host.params import P
+    from drand_tpu_torch.ops import limbs as L
+    x = torch.randint(0, 1 << 16, (m, L.NLIMB), device=dev)
+    x[:, -1] %= P >> (16 * (L.NLIMB - 1))
+    return x
+
+
+def run_k1(K, dev, emit, timed):
+    """K1: the sqrt chain at each window, block size and squaring; p - 2
+    by the Fermat chain against the shipped inversion."""
+    import torch
+    from drand_tpu_torch.crypto.host.params import P
+    libs = {}
+    for mul in (False, True):
+        libs[mul], st = build_k1(K, mul)
+        emit({"k1_ptxas": "fp_mul(a, a)" if mul else "fp_sqr", "entries": st})
+    ok = True
+
+    def chain(lib, e, w, t, x, out):
+        """K1's entries take the limb tensors, (B, 24) int64."""
+        sched, ntab = K.pow_schedule(e, w)
+        sd = torch.tensor(sched, dtype=torch.int32, device=dev)
+        return lambda: K._check(lib.drand_variant_pow(
+            w, t, x.data_ptr(), out.data_ptr(), sd.data_ptr(), sd.numel(),
+            ntab, x.shape[0], K._stream(x.device)), f"K1 w{w} t{t}")
+
+    e = (P - 3) // 4
+    for lanes in K1_LANES:
+        x = rand_fp(lanes, dev)
+        ref = K.pow_fixed(x, e)
+        if lanes == K1_LANES[0]:
+            err = int((ref - K.pow_fixed_plain(x, e)).abs().max())
+            emit({"check": f"K1 shipped vs plain at {lanes}",
+                  "max_abs_err": err})
+            ok &= err == 0
+        row = {"shipped_wrapper": timed(lambda: K.pow_fixed(x, e))}
+        variants = [(f"w{w} t128", False, w, 128) for w in K1_WINDOWS]
+        variants += [(f"w5 t{t}", False, 5, t) for t in K1_THREADS
+                     if t != 128]
+        variants += [("w5 t128 fp_mul(a, a)", True, 5, 128)]
+        for label, mul, w, t in variants:
+            out = torch.empty_like(x)
+            fn = chain(libs[mul], e, w, t, x, out)
+            fn()
+            err = int((out - ref).abs().max())
+            ok &= err == 0
+            row[label] = timed(fn)
+            row[f"{label} max_abs_err"] = err
+        emit({"k1": "(p-3)/4", "lanes": lanes, "ms": row})
+    for lanes in K1_INV_LANES:
+        x = rand_fp(lanes, dev)
+        ref = K.pow_fixed(x, P - 2)
+        out = torch.empty_like(x)
+        fermat = chain(libs[False], P - 2, 5, 128, x, out)
+        fermat()
+        err = int((out - ref).abs().max())
+        ok &= err == 0
+        inv = lambda: K._check(K._lib().drand_inv(
+            x.data_ptr(), out.data_ptr(), lanes, K._stream(x.device)), "inv")
+        emit({"k1": "p-2", "lanes": lanes, "ms": {
+            "inversion (shipped)": timed(inv),
+            "shipped_wrapper": timed(lambda: K.pow_fixed(x, P - 2)),
+            "fermat w5 chain": timed(fermat),
+            "fermat max_abs_err": err}})
+    return ok
 
 
 if __name__ == "__main__":
