@@ -41,8 +41,10 @@ Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
 timed; K3 and K4 (a warp a pairing lane) also at tail widths with a zero
 and a one lane, K6 (a thread group a ladder lane) at 16 bits over 5 lanes
-on both curves, K2 (a thread group a lane) at each width it compiles,
-K1 (both entries: the window chain and, for p - 2, the
+on both curves, K2 (a thread group a lane) and K7 (a batch of sums, a
+thread group an add) at each width they compile, K7 also on three rows
+of 1000 lanes with an all-infinity row, K1 (both entries: the window
+chain and, for p - 2, the
 inversion) and K5 also on edge values (0, 1, p - 1, R mod p, u), each
 group kernel's shapes with their dependent chain
 (ops/fp12prog.py), and the narrow K3 / K4 launches split into per-step
@@ -73,10 +75,10 @@ SEED = 20240101
 
 # the kernels each main path must launch at least once
 G1_RLC_KERNELS = ("pow_fixed", "scalar_mul_fixed", "miller_loop",
-                  "final_exponentiation", "sum_tiles", "scalar_mul_glv_mixed")
+                  "final_exponentiation", "sum_rows", "scalar_mul_glv_mixed")
 G2_EXACT_KERNELS = ("pow_fixed", "pow_fixed_fp2", "scalar_mul_fixed_g2",
                     "miller_loop", "final_exponentiation")
-G2_RLC_KERNELS = G2_EXACT_KERNELS + ("sum_tiles_g2", "scalar_mul_glv_mixed_g2")
+G2_RLC_KERNELS = G2_EXACT_KERNELS + ("sum_rows_g2", "scalar_mul_glv_mixed_g2")
 # the threshold paths, per signature group
 THRESHOLD_KERNELS = {
     "g1": {"sign": ("pow_fixed", "scalar_mul_fixed", "scalar_mul_bits"),
@@ -329,22 +331,32 @@ def need_glv(b0, b1):
     return dbl * _imad(2, 5) + adds * _imad(7, 4)
 
 
-def code_glv(b0, b1):
-    # from infinity: every step g1_double (7 products), g1_add_mixed (18)
-    # where b0 | b1
-    nz = (b0 | b1).bool()
-    return _imad(7 * nz.numel() + 18 * int(nz.sum()))
+def need_sum(z_is_zero, add):
+    """K7 multiply-adds for rows of points, z_is_zero (rows, lanes): per
+    row one complete add (add: the cheapest formula's multiply-adds,
+    add-2007-bl) for each finite point after the first; infinite inputs
+    add nothing."""
+    finite = (~z_is_zero).sum(-1)
+    return int((finite - 1).clamp(min=0).sum()) * add
 
 
-def need_sum(z_is_zero, tile, add=None):
-    """K7 multiply-adds: per tile, one complete add (add-2007-bl, 11M+5S)
-    for each finite point after the first; infinite inputs add nothing."""
-    finite = (~z_is_zero).reshape(-1, tile).sum(1)
-    return int((finite - 1).clamp(min=0).sum()) * (add or _imad(11, 5))
+def code_sum(rows, lanes, add_products):
+    """What K7 does: a complete add for each lane of a row after the first
+    (a halving tree over B lanes holds B - 1 adds; padding runs none), each
+    of the program's products at 588 (fp12prog.lane_counts)."""
+    return rows * max(lanes - 1, 0) * _imad(add_products)
 
 
-def code_sum(lanes, tile, add=None):
-    return (lanes // tile) * (tile - 1) * (add or _imad(23))  # g1_add: 23
+def k7_levels(lanes, tile):
+    """The dependent adds of a K7 row of `lanes` lanes: the halving levels
+    that hold an add in its fullest tile at each stage, then the fold of
+    the last 2-4 partials (kernels.sum_points_plain's association)."""
+    levels, n = 0, max(lanes, 1)
+    while True:
+        levels += (min(n, tile) - 1).bit_length()
+        n = -(-n // tile)
+        if n <= 4:
+            return levels + n - 1
 
 
 # G2: an Fp2 product is 3 Fp products, an Fp2 squaring 2 (complex
@@ -354,11 +366,6 @@ FP2_M, FP2_S = 3, 2
 G2_DBL_NEED = 2 * FP2_M + 5 * FP2_S        # dbl-2009-l
 G2_ADD_NEED = 11 * FP2_M + 5 * FP2_S       # add-2007-bl
 G2_MADD_NEED = 7 * FP2_M + 4 * FP2_S       # madd-2007-bl
-# field.cuh: g2_double 2 products + 5 squarings, g2_add 13 + 10, and
-# g2_add_mixed 10 + 8
-G2_DBL_CODE = 2 * FP2_M + 5 * FP2_S
-G2_ADD_CODE = 13 * FP2_M + 10 * FP2_S
-G2_MADD_CODE = 10 * FP2_M + 8 * FP2_S
 
 
 def need_pow2(e, p):
@@ -392,11 +399,6 @@ def need_glv_g2(b0, b1):
     dbl = (nbits - 1 - first).sum().item()
     adds = (steps - 1).clamp(min=0).sum().item()
     return _imad(dbl * G2_DBL_NEED + adds * G2_MADD_NEED)
-
-
-def code_glv_g2(b0, b1):
-    nz = (b0 | b1).bool()
-    return _imad(G2_DBL_CODE * nz.numel() + G2_MADD_CODE * int(nz.sum()))
 
 
 def need_ladder_var(bits, dbl, add):
@@ -438,8 +440,8 @@ def ptxas_summary(log):
 
 def entry_stats(regs, src, *needles):
     """The ptxas statistics of every entry kernel of `src` whose mangled
-    name holds one of the needles (K1's chain and inversion, K2-G1's
-    entry a width)."""
+    name holds one of the needles (K1's chain and inversion, K2-G1's and
+    K7's entry a width)."""
     return [dict(st, entry=name) for name, st in regs.get(src, {}).items()
             if any(nd in name for nd in needles)]
 
@@ -582,6 +584,8 @@ def main():
                   1 - X: "1-x", E2: "(p^2-9)/16"}
         if name.startswith(("scalar_mul_glv_mixed", "scalar_mul_bits")):
             return f"{key} bits"
+        if name.startswith("sum_rows"):
+            return f"{key} rows"
         return labels.get(key, key)
 
     def shape_list(shapes):
@@ -1055,14 +1059,16 @@ def main():
         return float(np.median(times))
 
     def at_width(kind, width, fn):
-        """fn() with K2 launched at `width` threads a lane, whatever its
-        lane count: kernels.K2_FILL_LANES moved below or above it."""
-        saved = K.K2_FILL_LANES
-        K.K2_FILL_LANES = 1 if width == FP.FILL_WIDTH.get(kind) else 1 << 62
+        """fn() with K2 or K7 launched at `width` threads a lane or an add,
+        whatever its lane or tile count: kernels.K2_FILL_LANES or
+        K7_FILL_TILES moved below or above it."""
+        attr = "K7_FILL_TILES" if kind.startswith("sum") else "K2_FILL_LANES"
+        saved = getattr(K, attr)
+        setattr(K, attr, 1 if width == FP.FILL_WIDTH.get(kind) else 1 << 62)
         try:
             return fn()
         finally:
-            K.K2_FILL_LANES = saved
+            setattr(K, attr, saved)
 
     def plain_run(fn):
         torch.cuda.synchronize()
@@ -1085,31 +1091,65 @@ def main():
         return (imads * lanes / imad_rate * 1e3,
                 words * lanes * WORD_BYTES / HBM_BYTES_PER_S * 1e3)
 
+    # One group phase (csrc/group.cuh) on its own: K2-G1's kernel at 8
+    # threads a lane runs a synthetic program of 512 phases of one add, or
+    # of one product, on 1 and on 14,336 lanes; the time a phase.  Not
+    # main-path launches.
+    def phase_us():
+        nph, nslots = 512, 16
+        out_us = {}
+        for name, is_prod, kind in (("linear", False, FP.ADD),
+                                    ("product", True, FP.PROD)):
+            tab = ([nslots, 1, nph, nph, 0, 0, 0, nph]
+                   + [v for i in range(nph) for v in (i, 1, int(is_prod))]
+                   + [kind, 3, 3, 4] * nph)
+            prog = torch.tensor(tab, dtype=torch.int32, device=dev)
+            sched = torch.zeros(1, dtype=torch.int32, device=dev)
+            for lanes in (1, 14336):
+                x = torch.zeros((3, 12, lanes), dtype=torch.int32, device=dev)
+                o = torch.empty_like(x)
+                fn = lambda: K._check(K._lib().drand_ladder_g1(
+                    x.data_ptr(), o.data_ptr(),
+                    K.const_bundle(str(dev)).data_ptr(), prog.data_ptr(),
+                    nslots, FP.WIDTH["fixed_g1"], sched.data_ptr(), 1, lanes,
+                    K._stream(dev)), "phase_us")
+                out_us[f"{name} at {lanes} lanes"] = \
+                    timed(fn, args.reps) / nph * 1e3
+        return out_us
+
+    phase = phase_us()
     xbits = K.XLOOP_BITS
     # K3 / K4 launch a warp a lane, K6, K2 and K5 a thread group a lane,
     # with the lane's slots in dynamic shared memory (csrc/group.cuh):
     # record that layout (K2 at each width it compiles)
     k2_kind = {"scalar_mul_fixed": "fixed_g1",
                "scalar_mul_fixed_g2": "fixed_g2"}
+    k7_kind = {"sum_rows": "sum_g1", "sum_rows_g2": "sum_g2"}
 
     def k2_widths(kind):
         return sorted({FP.WIDTH[kind], FP.FILL_WIDTH.get(kind,
                                                          FP.WIDTH[kind])})
 
     def layout(kind, width):
-        lanes_pb, smem = K.group_layout(kind, width)
-        return {"threads_per_lane": width,
-                "slots_per_lane": FP.compiled(kind)[1],
-                "lanes_per_block": lanes_pb,
+        per_block, smem = K.group_layout(kind, width)
+        unit = "adds" if kind.startswith("sum") else "lanes"
+        return {f"threads_per_{unit[:-1]}": width,
+                f"slots_per_{unit[:-1]}": FP.compiled(kind)[1],
+                f"{unit}_per_block": per_block,
                 "dynamic_smem_bytes_per_block": smem}
     group_layout = {kname: layout(kind, FP.WIDTH[kind]) for kname, kind in (
         ("miller_loop", "miller"), ("final_exponentiation", "finalexp"),
         ("scalar_mul_bits", "ladder_g1"), ("scalar_mul_bits_g2", "ladder_g2"),
-        ("pow_fixed_fp2", "pow2"))}
+        ("pow_fixed_fp2", "pow2"), ("scalar_mul_glv_mixed", "glv_g1"),
+        ("scalar_mul_glv_mixed_g2", "glv_g2"))}
     for kname, kind in k2_kind.items():
         group_layout[kname] = {"widths": [layout(kind, w)
                                           for w in k2_widths(kind)],
                                "fill_width_from_lanes": K.K2_FILL_LANES}
+    for kname, kind in k7_kind.items():
+        group_layout[kname] = {"widths": [layout(kind, w)
+                                          for w in k2_widths(kind)],
+                               "fill_width_from_tiles": K.K7_FILL_TILES}
     # (kernel, source, TPU kernel, [(label, exponent/scalar/bits, lanes,
     #  kernel call, plain call, compare, (need, code) multiply-adds per lane,
     #  words per lane)]) at the shapes the paths give each kernel; the
@@ -1205,26 +1245,63 @@ def main():
                                 < n)
     g0, g1 = torch.cat([b0, b0], 1), torch.cat([b1, b1], 1)
     glv_args = (tab_pt, tab_phi, tab_p3, g0, g1)
-    # K7 at the lanes its launches had: the batch, then the zero-padded
-    # per-tile partials
-    def sum_input(pts, first, lanes):
-        real = first if lanes == first else -(-first // K.TILE)
-        return K._pad_lanes(DC._tmap(lambda c: c[:real], pts), lanes)
+    limb_words = K1_LIMB_BYTES / WORD_BYTES   # an Fp as 24 int64 limbs
 
-    def sum_specs(kname, shapes, pts, first, add_need, add_code, words):
-        lanes_seen = sorted({lanes for (k, _, lanes) in shapes
-                             if k == kname})
-        ins = {lanes: sum_input(pts, first, lanes) for lanes in lanes_seen}
-        return [(f"{lanes} lanes", None, lanes,
-                 (lambda p=ins[lanes]: K.sum_tiles(p)),
-                 (lambda p=ins[lanes]: K.sum_tiles_plain(p)), err_flat,
-                 (need_sum(K._curve(ins[lanes]).is_infinity(ins[lanes]),
-                           K.TILE, add_need) / lanes,
-                  code_sum(lanes, K.TILE, add_code) / lanes),
-                 words + words / K.TILE)
-                for lanes in lanes_seen]
+    def k8_shape(label, args):
+        """A K8 shape: need from these bits, code and chain from the
+        program's own counts for nbits steps (an add at every step)."""
+        g2k = K._is_g2(args[0])
+        kind = "glv_g2" if g2k else "glv_g1"
+        b0, b1 = args[3], args[4]
+        nbits, lanes = b0.shape
+        counts = FP.lane_counts(kind, [0] * nbits)
+        need = need_glv_g2(b0, b1) if g2k else need_glv(b0, b1)
+        return (label, nbits, lanes, lambda: K.scalar_mul_glv_mixed(*args),
+                lambda: K.scalar_mul_glv_mixed_plain(*args), err_flat,
+                (need / lanes, code_group(counts)),
+                (27 if g2k else 9) * limb_words + 2 * nbits / 12,
+                dict(chain(kind, counts), threads_per_lane=FP.WIDTH[kind]))
 
-    sum_shapes = sum_specs("sum_tiles", rlc_shapes, pj, pad, None, None, 3)
+    def k7_shape(label, pts):
+        """A K7 shape, rows x lanes points: need from their finite points,
+        code from the add program's products; its chain: the dependent
+        adds of a row (k7_levels) and the add's counts at the width
+        kernels.sum_width picks, and the floor they set at this run's
+        one-lane phase latencies."""
+        g2k = K._is_g2(pts)
+        kind = "sum_g2" if g2k else "sum_g1"
+        rows, lanes = K._flat(pts)[0].shape[:2]
+        w = K.sum_width(kind, rows * -(-lanes // K.TILE))
+        add = FP.lane_counts(kind, None, w)
+        need = need_sum(K._curve(pts).is_infinity(pts),
+                        _imad(G2_ADD_NEED) if g2k else _imad(11, 5))
+        levels = k7_levels(lanes, K.TILE)
+        nc = 6 if g2k else 3
+        return (label, rows, lanes, lambda: K.sum_rows(pts),
+                lambda: K.sum_rows_plain(pts), err_flat,
+                (need / lanes, code_sum(rows, lanes, add["products"]) / lanes),
+                rows * nc * limb_words * (1 + 1 / lanes),
+                dict(chain(kind, add), threads_per_add=w,
+                     dependent_adds=levels, chain_floor_ms=levels * (
+                         add["product_phases"] * phase["product at 1 lanes"]
+                         + add["linear_phases"] * phase["linear at 1 lanes"])
+                     / 1e3))
+
+    def sum_check(pts):
+        """3 rows of 1000 lanes (a ragged last tile each), pts repeated
+        over them; in row 0, lane 128 the negation of lane 0 and lane 130
+        a copy of lane 2 (level 128 meets P == -Q and P == Q); row 1 all
+        infinity."""
+        curve = K._curve(pts)
+        idx = torch.arange(3000, device=dev) % K._flat(pts)[0].shape[0]
+        x = DC._tmap(lambda c: c[idx].reshape(3, 1000, L.NLIMB).clone(),
+                     pts)
+        neg = curve.neg(DC._tmap(lambda c: c[0, :1], x))
+        inf = curve.infinity_like(K._flat(x)[0][1])
+        for c, d, i in zip(K._flat(x), K._flat(neg), K._flat(inf)):
+            c[0, 128], c[0, 130], c[1] = d[0], c[0, 2], i
+        return x
+
     # the G2 instances: random G2 points (members, infinity, the generator
     # and a point outside G2) at the path's widths
     x3n2 = (rand_fp(3 * pad), rand_fp(3 * pad))
@@ -1233,9 +1310,6 @@ def main():
                                                        (xq2, yq2)]
     pj2 = DC.encode_g2_points(pts2, dev)
     pj2r = DC._tmap(lambda c: c.roll(1, 0), pj2)
-    sum2_shapes = sum_specs("sum_tiles_g2", g2_shapes,
-                            DC._cat_lanes(pj2, pj2r), 2 * pad,
-                            _imad(G2_ADD_NEED), _imad(G2_ADD_CODE), 6)
     # K8-G2 at 4N: the tables of [S, psi S, H, psi H] lanes as
     # g2_glv_msm_terms builds them, bits from the device sampler split
     # four ways (the same quarters on the S and H halves)
@@ -1299,25 +1373,21 @@ def main():
              (need_finalexp(xbits, HF.FROB, P),
               code_group(group_counts["finalexp"])), 24,
              chain("finalexp"))]),
-        ("sum_tiles", "sum.cu", 1187, "K7 G1", ("k_sum_g1",), sum_shapes),
+        ("sum_rows", "sum.cu", 1187, "K7 G1", ("k_sum_rows_g1",), [
+            k7_shape("3 rows at 1000, row 1 all infinity (check)",
+                     sum_check(pj))]),
         ("scalar_mul_glv_mixed", "glv.cu", 1298, "K8 G1", ("k_glv_g1",), [
-            ("64 bits at 2N", 64, 2 * pad,
-             lambda: K.scalar_mul_glv_mixed(*glv_args),
-             lambda: K.scalar_mul_glv_mixed_plain(*glv_args), err,
-             (need_glv(g0, g1) / (2 * pad), code_glv(g0, g1) / (2 * pad)),
-             6 + 2 * 64 / 12 + 3)]),
+            k8_shape("64 bits at 2N", glv_args)]),
         ("pow_fixed_fp2", "pow2.cu", 562, "K5", ("k_pow2",), [
             k5_shape("(p^2-9)/16 at 3N", E2, x3n2),
             k5_shape("(p^2-9)/16, edge values (check)", E2, x2_edge)]),
         ("scalar_mul_fixed_g2", "ladder.cu", 635, "K2 G2", ("k_ladder_g2",), [
             k2_shape("scalar_mul_fixed_g2", -X, pad, pj2, "|x| at N")]),
-        ("sum_tiles_g2", "sum.cu", 1187, "K7 G2", ("k_sum_g2",), sum2_shapes),
+        ("sum_rows_g2", "sum.cu", 1187, "K7 G2", ("k_sum_rows_g2",), [
+            k7_shape("3 rows at 1000, row 1 all infinity (check)",
+                     sum_check(pj2))]),
         ("scalar_mul_glv_mixed_g2", "glv.cu", 1298, "K8 G2", ("k_glv_g2",), [
-            ("32 bits at 4N", 32, 4 * pad,
-             lambda: K.scalar_mul_glv_mixed(*glv2_args),
-             lambda: K.scalar_mul_glv_mixed_plain(*glv2_args), err_flat,
-             (need_glv_g2(h0, h1) / (4 * pad),
-              code_glv_g2(h0, h1) / (4 * pad)), 12 + 2 * 32 / 12 + 6)]),
+            k8_shape("32 bits at 4N", glv2_args)]),
         ("scalar_mul_bits", "ladder_var.cu", 595, "K6 G1",
          ("k_ladder_var_g1",), []),
         ("scalar_mul_bits_g2", "ladder_var.cu", 595, "K6 G2",
@@ -1412,30 +1482,16 @@ def main():
                     (need_finalexp(xbits, HF.FROB, P),
                      code_group(group_counts["finalexp"])), 24,
                     chain("finalexp"))
-        if kname.startswith("sum_tiles"):
-            pts = spread(special[g2k], lanes)
-            add_need = _imad(G2_ADD_NEED) if g2k else None
-            add_code = _imad(G2_ADD_CODE) if g2k else None
-            words = 6 if g2k else 3
-            return (label, key, lanes, lambda: K.sum_tiles(pts),
-                    lambda: K.sum_tiles_plain(pts), err_flat,
-                    (need_sum(K._curve(pts).is_infinity(pts), K.TILE,
-                              add_need) / lanes,
-                     code_sum(lanes, K.TILE, add_code) / lanes),
-                    words + words / K.TILE)
+        if kname.startswith("sum_rows"):
+            return k7_shape(label, DC._tmap(
+                lambda c: c.reshape(key, lanes, L.NLIMB),
+                spread(special[g2k], key * lanes)))
         if kname.startswith("scalar_mul_glv_mixed"):
             tabs = [spread(t, lanes) for t in
                     (glv2_args[:3] if g2k else glv_args[:3])]
             b0, b1 = torch.randint(0, 2, (2, key, lanes), device=dev,
                                    dtype=torch.int32)
-            a = (*tabs, b0, b1)
-            im = ((need_glv_g2(b0, b1), code_glv_g2(b0, b1)) if g2k
-                  else (need_glv(b0, b1), code_glv(b0, b1)))
-            return (label, key, lanes, lambda: K.scalar_mul_glv_mixed(*a),
-                    lambda: K.scalar_mul_glv_mixed_plain(*a), err_flat,
-                    (im[0] / lanes, im[1] / lanes),
-                    (12 + 2 * key / 12 + 6) if g2k else
-                    (6 + 2 * key / 12 + 3))
+            return k8_shape(label, (*tabs, b0, b1))
         if kname.startswith("scalar_mul_bits"):
             return k6_shape(g2k, key, lanes)
         fail(f"no inputs for {kname} at {key}, {lanes} lanes")
@@ -1491,16 +1547,19 @@ def main():
             checks[f"{kname} {label}"] = e
             max_err = max(max_err, e)
             k_ms = timed(kfn, args.reps)
-            if kname in k2_kind:          # K2: each compiled width, checked
+            if kname in k2_kind or kname in k7_kind:
+                # K2 and K7: each compiled width, checked
                 by_width = {}
-                kind = k2_kind[kname]
+                kind = {**k2_kind, **k7_kind}[kname]
                 for w in k2_widths(kind):
                     e = cmp(at_width(kind, w, kfn), p_out)
                     checks[f"{kname} {label} at {w} threads"] = e
                     max_err = max(max_err, e)
                     by_width[w] = timed(lambda: at_width(kind, w, kfn),
                                         args.reps)
-                extra = [dict(extra[0], ms_at_threads_per_lane=by_width)]
+                unit = "add" if kname in k7_kind else "lane"
+                extra = [dict(extra[0], **{f"ms_at_threads_per_{unit}":
+                                           by_width})]
             o_ms, b_ms = bound_ms(imads[0], lanes, words)
             c_ms = bound_ms(imads[1], lanes, words)[0]
             ms += count * k_ms
@@ -1563,9 +1622,9 @@ def main():
         lambda: DC.G1.to_affine_batch(tabs))
     _, stages["of_which_batch_inverse_4N"] = wall_ms(
         lambda: DC.G1.batch_inverse(tabs[2]))
-    sums, stages["two_sum_points"] = wall_ms(
-        lambda: [K.sum_points(tuple(t[i:i + pad] for t in mult))
-                 for i in (0, pad)])
+    sums, stages["sum_rows_two_sums"] = wall_ms(
+        lambda: K.sum_rows(tuple(t.reshape(2, pad, L.NLIMB) for t in mult)))
+    sums = [tuple(c[i] for c in sums) for i in (0, 1)]
     def pairing_check():
         (ax, ay, _), (bx, by, _) = (DC.G1.to_affine(pt) for pt in sums)
         q = tuple(tuple(torch.stack([x, y]) for x, y in zip(u, v))
@@ -1591,9 +1650,10 @@ def main():
         lambda: DC.G2.to_affine_batch(tabs2))
     _, st2["of_which_batch_inverse_8N"] = wall_ms(
         lambda: DC.G2.batch_inverse(tabs2[2]))
-    sums2, st2["two_sum_points"] = wall_ms(
-        lambda: [K.sum_points(DC._tmap(lambda t: t[i:i + 2 * pad], mult2))
-                 for i in (0, 2 * pad)])
+    sums2, st2["sum_rows_two_sums"] = wall_ms(
+        lambda: K.sum_rows(DC._tmap(
+            lambda t: t.reshape(2, 2 * pad, L.NLIMB), mult2)))
+    sums2 = [DC._tmap(lambda c: c[i], sums2) for i in (0, 1)]
 
     def pairing_check2():
         (ax, ay, _), (bx, by, _) = (DC.G2.to_affine(pt) for pt in sums2)
@@ -1642,34 +1702,8 @@ def main():
                 "fragments": {k: FP.frag_stats(k)
                               for k in ("miller", "finalexp")}}
 
-    # One group phase (csrc/group.cuh) on its own: K2-G1's kernel at 8
-    # threads a lane runs a synthetic program of 512 phases of one add, or
-    # of one product, on 1 and on 14,336 lanes; the time a phase.  Not
-    # main-path launches.
-    def phase_us():
-        nph, nslots = 512, 16
-        out_us = {}
-        for name, is_prod, kind in (("linear", False, FP.ADD),
-                                    ("product", True, FP.PROD)):
-            tab = ([nslots, 1, nph, nph, 0, 0, 0, nph]
-                   + [v for i in range(nph) for v in (i, 1, int(is_prod))]
-                   + [kind, 3, 3, 4] * nph)
-            prog = torch.tensor(tab, dtype=torch.int32, device=dev)
-            sched = torch.zeros(1, dtype=torch.int32, device=dev)
-            for lanes in (1, 14336):
-                x = torch.zeros((3, 12, lanes), dtype=torch.int32, device=dev)
-                o = torch.empty_like(x)
-                fn = lambda: K._check(K._lib().drand_ladder_g1(
-                    x.data_ptr(), o.data_ptr(),
-                    K.const_bundle(str(dev)).data_ptr(), prog.data_ptr(),
-                    nslots, FP.WIDTH["fixed_g1"], sched.data_ptr(), 1, lanes,
-                    K._stream(dev)), "phase_us")
-                out_us[f"{name} at {lanes} lanes"] = \
-                    timed(fn, args.reps) / nph * 1e3
-        return out_us
-
     emit({"phase": "where_the_time_goes", "rounds": n,
-          "group_phase_us": phase_us(),
+          "group_phase_us": phase,
           "k3_k4_narrow_launches": chain_split(),
           "rlc_stages_ms": stages, "g2_rlc_stages_ms": st2,
           "verify_batch_rlc": split(rlc_pack_s, rlc_pass_s,

@@ -21,15 +21,15 @@ verdict at every slot as the JAX verifier.
 G1 signatures: one RLC pass launches K1 four times (the shared sqrt scan
 at width 3N, the batch inversion of the GLV tables and the two to_affine
 at one lane), K2 three times (two |x| ladders of the subgroup check, one
-cofactor clearing), K8 once (2N lanes), K7 twice per point sum (two sums),
-K3 once (2 pairs) and K4 once (1 lane).  One exact pass launches K1 three
+cofactor clearing), K8 once (2N lanes), K7 once (both point sums, two
+rows of N), K3 once (2 pairs) and K4 once (1 lane).  One exact pass launches K1 three
 times (the sqrt scan and two to_affine at N), K2 three times, K3 once (2N
 pairs) and K4 once (N lanes).
 
 G2 signatures: one RLC pass launches K5 once (the shared E2 scan at 3N),
 K2-G2 three times (the |x| ladder of the subgroup check, two in cofactor
 clearing), K8-G2 once (4N lanes: [S, psi S, H, psi H] with the 128-bit
-coefficient split four ways across psi), K7-G2 twice per point sum, K1 three
+coefficient split four ways across psi), K7-G2 once (two rows), K1 three
 times at one lane (the Fp2 inverses of the batch inversion and of the two
 to_affine), K3 once and K4 once; the exact pass K5 once, K2-G2 three times,
 K1 twice at N (two to_affine), K3 once (2N pairs) and K4 once (N lanes).
@@ -306,8 +306,9 @@ def _rlc_run_g1sig(sig_x, sign, u0, u1, n, pk_aff, neg_g2_aff, bits=None):
     """One RLC check over a padded batch of which the first n lanes are
     real: decompress + hash, subgroup check per lane (a batched check is
     unsound on G1), lanes [S, H] with the same coefficient on S_i and H_i,
-    the GLV MSM (K8), A = sum over the S half and B over the H half (K7),
-    and e(A, -g2) * e(B, pk) == 1 in one 2-pair Miller loop.
+    the GLV MSM (K8), A = sum over the S half and B over the H half (K7,
+    the two rows of one launch), and e(A, -g2) * e(B, pk) == 1 in one
+    2-pair Miller loop.
 
     bits: the (b0, b1) planes of the coefficients, (64, pad) each; None
     draws them on the device from fresh keys.  Returns (sub_ok, verdict)."""
@@ -322,8 +323,8 @@ def _rlc_run_g1sig(sig_x, sign, u0, u1, n, pk_aff, neg_g2_aff, bits=None):
     mult = DC.g1_glv_msm_terms(both, torch.cat([b0, b0], 1),
                                torch.cat([b1, b1], 1))
     half = b0.shape[1]
-    A = K.sum_points(tuple(t[:half] for t in mult))
-    B = K.sum_points(tuple(t[half:] for t in mult))
+    sums = K.sum_rows(tuple(t.reshape(2, half, t.shape[-1]) for t in mult))
+    A, B = (tuple(c[i] for c in sums) for i in (0, 1))
     ax, ay, _ = DC.G1.to_affine(A)
     bx, by, _ = DC.G1.to_affine(B)
     # e(A, -g2) * e(B, pk): the two pairs share one Miller launch
@@ -380,7 +381,8 @@ def _rlc_run_g2sig(sig_x, sign, u0, u1, n, pk_aff, neg_g1_aff, bits=None):
     lanes [S, psi S, H, psi H] run the 32-step psi^2-joint ladder (K8-G2)
     with bl = [b0, b1, b0, b1], bh = [b2, b3, b2, b3], so S_i and H_i get
     k_i = b0 + x b1 + x^2 b2 + x^3 b3; A sums the S half and B the H half
-    (K7-G2); e(-g1, A) * e(pk, B) == 1 in one 2-pair Miller loop.
+    (K7-G2, the two rows of one launch); e(-g1, A) * e(pk, B) == 1 in one
+    2-pair Miller loop.
 
     bits: the planes (b0, b1, b2, b3), (32, pad) each; None draws them on
     the device from fresh keys.  Returns (sub_ok, verdict)."""
@@ -396,8 +398,9 @@ def _rlc_run_g2sig(sig_x, sign, u0, u1, n, pk_aff, neg_g1_aff, bits=None):
     mult = DC.g2_glv_msm_terms(base, torch.cat([b0, b1, b0, b1], 1),
                                torch.cat([b2, b3, b2, b3], 1))
     half = 2 * b0.shape[1]
-    A = K.sum_points(DC._tmap(lambda t: t[:half], mult))
-    Bp = K.sum_points(DC._tmap(lambda t: t[half:], mult))
+    sums = K.sum_rows(DC._tmap(lambda t: t.reshape(2, half, t.shape[-1]),
+                               mult))
+    A, Bp = (DC._tmap(lambda c: c[i], sums) for i in (0, 1))
     ax, ay, _ = DC.G2.to_affine(A)
     bx, by, _ = DC.G2.to_affine(Bp)
     px = torch.stack([neg_g1_aff[0], pk_aff[0]])

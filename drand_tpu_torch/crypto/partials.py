@@ -34,6 +34,7 @@ from .host import tbls as HT
 from .schemes import Scheme, GroupG2
 from ..ops import curve as DC
 from ..ops import h2c as DH
+from ..ops import kernels as K
 from ..ops import limbs as L
 from ..ops import pairing as DP
 
@@ -45,15 +46,16 @@ def _tile_rounds(pt, k):
     return DC._tmap(lambda t: torch.repeat_interleave(t, k, dim=0), pt)
 
 
-def _masked_sums(curve, pts, onehot):
-    """Per-signer sums T_i = sum over the slots with onehot[i] == 1
-    (masked-out slots become infinity), one 1-D sum_points (K7) per
-    signer, in order: the JAX package's lax.scan over the signer axis.
-    Returns the sums stacked on a leading signer axis."""
-    inf = curve.infinity_like(DC._leaf(pts[0]))
-    ts = [curve.sum_points(curve.select(row == 1, pts, inf))
-          for row in onehot]
-    return DC._tmap(lambda *xs: torch.stack(xs), *ts)
+def _rlc_sums(curve, s_pts, h_pts, onehot):
+    """S = the sum of the weighted signatures and the per-signer sums T_i =
+    the sum over the slots with onehot[i] == 1 (masked-out slots become
+    infinity): 1 + p rows of one width, one sum_rows (one K7 launch), each
+    row in the association of the JAX package's sum_points (its S sum and
+    its lax.scan over the signer axis).  Returns the sums stacked on a
+    leading axis, S first."""
+    inf = curve.infinity_like(DC._leaf(h_pts[0]))
+    return K.sum_rows(_prepend_point(s_pts,
+                                     curve.select(onehot == 1, h_pts, inf)))
 
 
 def _prepend_point(single, stacked):
@@ -89,9 +91,9 @@ def _rlc_partials_run_g1sig(sig_x, sign, u0, u1, valid, onehot, pk_sel,
     b0, b1 = bits
     mult = DC.g1_glv_msm_terms(_cat(sig_jac, hm), torch.cat([b0, b0], 1),
                                torch.cat([b1, b1], 1))
-    s_sum = DC.G1.sum_points(DC._tmap(lambda t: t[:rk], mult))
-    ts = _masked_sums(DC.G1, DC._tmap(lambda t: t[rk:], mult), onehot)
-    px, py, _ = DC.G1.to_affine(_prepend_point(s_sum, ts))
+    px, py, _ = DC.G1.to_affine(_rlc_sums(
+        DC.G1, DC._tmap(lambda t: t[:rk], mult),
+        DC._tmap(lambda t: t[rk:], mult), onehot))
     qx = _prepend_point(neg_g2_aff[0], pk_sel[0])
     qy = _prepend_point(neg_g2_aff[1], pk_sel[1])
     ok = DP.paired_product_is_one(px, py, (qx, qy), onehot.shape[0] + 1)
@@ -118,10 +120,9 @@ def _rlc_partials_run_g2sig(sig_x, sign, u0, u1, valid, onehot, pk_sel,
     base = _cat(sig_jac, DC.g2_psi(sig_jac), hm, DC.g2_psi(hm))
     mult = DC.g2_glv_msm_terms(base, torch.cat([b0, b1, b0, b1], 1),
                                torch.cat([b2, b3, b2, b3], 1))
-    s_sum = DC.G2.sum_points(DC._tmap(lambda t: t[:2 * rk], mult))
-    ts = _masked_sums(DC.G2, DC._tmap(lambda t: t[2 * rk:], mult),
-                      torch.cat([onehot, onehot], 1))
-    qx, qy, _ = DC.G2.to_affine(_prepend_point(s_sum, ts))
+    qx, qy, _ = DC.G2.to_affine(_rlc_sums(
+        DC.G2, DC._tmap(lambda t: t[:2 * rk], mult),
+        DC._tmap(lambda t: t[2 * rk:], mult), torch.cat([onehot, onehot], 1)))
     px = _prepend_point(neg_g1_aff[0], pk_sel[0])
     py = _prepend_point(neg_g1_aff[1], pk_sel[1])
     ok = DP.paired_product_is_one(px, py, (qx, qy), onehot.shape[0] + 1)

@@ -8,122 +8,112 @@
 // where b0 | b1 -- the JAX selections in the JAX order, so the Jacobian
 // output equals the JAX package's limb for limb.
 //
-// Bound on this card: integer multiply-adds (G1: 64 doublings of 7 products
-// and about 48 mixed adds of 18 a lane for random 64-bit halves; G2: 32
-// steps, each product 3 Fp products).  Design: one thread per lane; the
-// bits are per lane, read from the (2, nbits, B) planes (neighbouring
-// threads on neighbouring words), so the skip of a zero pair is a per-lane
-// branch.  G1 keeps its three affine tables in registers and selects the
-// entry word by word.  G2's tables are 144 words and its accumulator 72,
-// more than the register file holds for a thread: the selected entry is
-// read from device memory at each step (read-only, it stays in L1/L2).
+// Bound on this card: integer multiply-adds (G1: 64 steps, G2: 32, over
+// 16,384-57,344 lanes), where one thread a lane held the tables and the
+// accumulator in 255 registers and spilled (G1) or kept them in local
+// memory (G2), and so ran at a few resident warps an SM.  Design: a thread
+// group per lane (group.cuh), as K6: the lane's table, accumulator, bit
+// flags and temporaries in shared-memory slots, each thread at most one
+// Fp product in registers.  A step is one fragment of fp12prog's "glv_g1"
+// / "glv_g2" program: DevCurve.double, the entry picked by word-wise
+// selects on the bit flags, and curve.add_mixed with its embedded
+// doubling, flags and selects, the ladder's select by b0 | b1 folded into
+// its chain.  Before each step the group writes the step's two bits as
+// flags (every word all ones or all zeros) into slots; every lane runs the
+// same phases, the add included, whatever its bits: no branch here or in
+// group.cuh reads a bit, a flag or a point.
+//
+// Lanes in and out as the plain engine's limb tensors: the table's 6 (G1)
+// or 12 (G2) coordinates P.x, P.y, endo.x, endo.y, P3.x, P3.y (Fp2 pairs
+// on G2), the accumulator's 3 or 6; bits (2, nbits, B) int32, plane 0 =
+// b0, plane 1 = b1, MSB first.
 
-#include "field.cuh"
+#include "group.cuh"
 
 using namespace drand;
 
-// tables: (6, 12, B) words, coordinates P.x, P.y, phi.x, phi.y, P3.x, P3.y;
-// bits: (2, nbits, B) int32, plane 0 = b0, plane 1 = b1, MSB first
-DI void glv_lane_g1(const uint32_t* tab, const int32_t* bits, uint32_t* out,
-                    int nbits, int64_t B, int64_t lane) {
-  G1A pt, phi, p3, t;
-  load_fp(pt.x, tab, 0, B, lane);
-  load_fp(pt.y, tab, 1, B, lane);
-  load_fp(phi.x, tab, 2, B, lane);
-  load_fp(phi.y, tab, 3, B, lane);
-  load_fp(p3.x, tab, 4, B, lane);
-  load_fp(p3.y, tab, 5, B, lane);
-  const int32_t* b0 = bits + lane;
-  const int32_t* b1 = bits + (int64_t)nbits * B + lane;
-  G1J acc;
-  g1_infinity(acc);
-  for (int i = 0; i < nbits; i++) {
-    g1_double(acc, acc);
-    const bool c0 = b0[(int64_t)i * B] == 1;
-    const bool c1 = b1[(int64_t)i * B] == 1;
-    if (c0 || c1) {
-      // sel(b0, sel(b1, P3, P), sel(b1, phi, P)), word by word so the
-      // tables stay in registers
-      UNROLL for (int w = 0; w < 12; w++) {
-        t.x.v[w] = c0 ? (c1 ? p3.x.v[w] : pt.x.v[w])
-                      : (c1 ? phi.x.v[w] : pt.x.v[w]);
-        t.y.v[w] = c0 ? (c1 ? p3.y.v[w] : pt.y.v[w])
-                      : (c1 ? phi.y.v[w] : pt.y.v[w]);
-      }
-      g1_add_mixed(acc, acc, t);
-    }
-  }
-  store_point(out, 0, acc, B, lane);
-}
+// threads a lane (fp12prog.WIDTH["glv_g1"] / ["glv_g2"]; the wrapper
+// passes its width, checked here)
+constexpr int K8_G1_WIDTH = 4, K8_G2_WIDTH = 8;
+// fp12prog.GLV slots for N field components: the accumulator at 0 (3 N,
+// the output), the table at 3 N (6 N, the input), the bit flags at 9 N and
+// 9 N + 1; fragments init, step
+constexpr int K8_INIT = 0, K8_STEP = 1;
 
-// tables: (12, 12, B) words, coordinates Q.x.c0, Q.x.c1, Q.y.c0, Q.y.c1,
-// then psi^2(Q) and Q + psi^2(Q) likewise; bits as for G1
-DI void glv_lane_g2(const uint32_t* tab, const int32_t* bits, uint32_t* out,
-                    int nbits, int64_t B, int64_t lane) {
-  const int32_t* b0 = bits + lane;
-  const int32_t* b1 = bits + (int64_t)nbits * B + lane;
-  G2J acc;
-  G2A t;
-  g2_infinity(acc);
-  for (int i = 0; i < nbits; i++) {
-    g2_double(acc, acc);
-    const bool c0 = b0[(int64_t)i * B] == 1;
-    const bool c1 = b1[(int64_t)i * B] == 1;
-    if (c0 || c1) {
-      // sel(b0, sel(b1, P3, Q), sel(b1, psi^2, Q)): table 2, 0 or 1
-      const int entry = c0 ? (c1 ? 2 : 0) : 1;
-      load_fp2(t.x, tab, 4 * entry, B, lane);
-      load_fp2(t.y, tab, 4 * entry + 2, B, lane);
-      g2_add_mixed(acc, acc, t);
+template <int W, int N>
+DI void glv_lane(const GroupProg& g, Fp* lane, const Fp* cs, const Limbs& tab,
+                 const Limbs& out, const int32_t* bits, int nbits, int64_t B,
+                 int64_t idx) {
+  const int64_t src = idx < B ? idx : B - 1;
+  load_lane_limbs<W>(lane + 3 * N, tab, 6 * N, B, idx);
+  // i = -1: the init fragment; then per step its flags and the step (one
+  // call site, so the interpreter is inlined once)
+  for (int i = -1; i < nbits; i++) {
+    if (i >= 0) {
+      const uint32_t m0 = 0u - (uint32_t)(bits[(int64_t)i * B + src] == 1);
+      const uint32_t m1 =
+          0u - (uint32_t)(bits[((int64_t)nbits + i) * B + src] == 1);
+      group_phase<W>([&](int t) {
+        for (int w = t; w < 24; w += W)
+          lane[9 * N + w / 12].v[w % 12] = w < 12 ? m0 : m1;
+      });
     }
+    run_frag<W>(g, lane, cs, i < 0 ? K8_INIT : K8_STEP);
   }
-  store_point(out, 0, acc, B, lane);
+  store_lane_limbs<W>(out, lane, 3 * N, B, idx);
 }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(128) k_glv_g1(const uint32_t* tab,
-                                                const int32_t* bits,
-                                                uint32_t* out, int nbits,
-                                                int64_t B) {
-  const int64_t lane = DRAND_LANE_INDEX();
-  if (lane < B) glv_lane_g1(tab, bits, out, nbits, B, lane);
+template <int W, int N>
+DI void glv_block(const Limbs& tab, const Limbs& out, const uint32_t* consts,
+                  const int32_t* prog, const int32_t* bits, int nbits,
+                  int64_t B) {
+  extern __shared__ __align__(16) Fp smem[];
+  const GroupProg g = group_prog(prog);
+  int64_t idx;
+  Fp* lane = group_enter<W>(smem, consts, g.nslots, B, &idx);
+  if (lane) glv_lane<W, N>(g, lane, smem, tab, out, bits, nbits, B, idx);
 }
 
-__global__ void __launch_bounds__(128) k_glv_g2(const uint32_t* tab,
-                                                const int32_t* bits,
-                                                uint32_t* out, int nbits,
-                                                int64_t B) {
-  const int64_t lane = DRAND_LANE_INDEX();
-  if (lane < B) glv_lane_g2(tab, bits, out, nbits, B, lane);
-}
+#define K8_KERNEL(name, W, N)                                                \
+  __global__ void __launch_bounds__(GROUP_THREADS)                          \
+      name(Limbs tab, Limbs out, const uint32_t* consts,                     \
+           const int32_t* prog, const int32_t* bits, int nbits, int64_t B) { \
+    glv_block<W, N>(tab, out, consts, prog, bits, nbits, B);                 \
+  }
+K8_KERNEL(k_glv_g1, K8_G1_WIDTH, 1)
+K8_KERNEL(k_glv_g2, K8_G2_WIDTH, 2)
 
-extern "C" int drand_glv_g1(const void* tab, const void* bits, void* out,
-                            int nbits, int64_t B, void* stream) {
-  DRAND_LAUNCH(k_glv_g1, B, 128, stream, (const uint32_t*)tab,
-               (const int32_t*)bits, (uint32_t*)out, nbits, B);
-}
-
-extern "C" int drand_glv_g2(const void* tab, const void* bits, void* out,
-                            int nbits, int64_t B, void* stream) {
-  DRAND_LAUNCH(k_glv_g2, B, 128, stream, (const uint32_t*)tab,
-               (const int32_t*)bits, (uint32_t*)out, nbits, B);
-}
+#define K8_LAUNCH(kernel, W, N)                                              \
+  DRAND_GROUP_LAUNCH(kernel, W, B, nslots, stream, limbs_of(tab, 6 * N),     \
+                     limbs_of(out, 3 * N), (const uint32_t*)consts,          \
+                     (const int32_t*)prog, (const int32_t*)bits, nbits, B)
 #else
-extern "C" int drand_glv_g1(const void* tab, const void* bits, void* out,
-                            int nbits, int64_t B, void* stream) {
-  (void)stream;
-  for (int64_t lane = 0; lane < B; lane++)
-    glv_lane_g1((const uint32_t*)tab, (const int32_t*)bits, (uint32_t*)out,
-                nbits, B, lane);
-  return 0;
+template <int W, int N>
+static int glv_host(const void* const* tab, const void* const* out,
+                    const void* consts, const void* prog, const void* bits,
+                    int nbits, int64_t B) {
+  const Limbs t = limbs_of(tab, 6 * N), o = limbs_of(out, 3 * N);
+  return group_host_run(
+      (const int32_t*)prog, (const uint32_t*)consts, B,
+      [&](const GroupProg& g, Fp* lane, const Fp* cs, int64_t idx) {
+        glv_lane<W, N>(g, lane, cs, t, o, (const int32_t*)bits, nbits, B,
+                       idx);
+      });
 }
-
-extern "C" int drand_glv_g2(const void* tab, const void* bits, void* out,
-                            int nbits, int64_t B, void* stream) {
-  (void)stream;
-  for (int64_t lane = 0; lane < B; lane++)
-    glv_lane_g2((const uint32_t*)tab, (const int32_t*)bits, (uint32_t*)out,
-                nbits, B, lane);
-  return 0;
-}
+#define K8_LAUNCH(kernel, W, N)                                              \
+  (void)nslots;                                                              \
+  (void)stream;                                                              \
+  return glv_host<W, N>(tab, out, consts, prog, bits, nbits, B)
 #endif
+
+#define K8_ENTRY(fn, kernel, W, N)                                           \
+  extern "C" int fn(const void* const* tab, const void* const* out,         \
+                    const void* consts, const void* prog, int nslots,        \
+                    int width, const void* bits, int nbits, int64_t B,       \
+                    void* stream) {                                          \
+    if (width != W) return 1;                                                \
+    K8_LAUNCH(kernel, W, N);                                                 \
+  }
+K8_ENTRY(drand_glv_g1, k_glv_g1, K8_G1_WIDTH, 1)
+K8_ENTRY(drand_glv_g2, k_glv_g2, K8_G2_WIDTH, 2)

@@ -1,10 +1,12 @@
 // A thread group per lane: the interpreter of the Fp programs that
 // drand_tpu_torch/ops/fp12prog.py writes for K2 (ladder.cu), K3
-// (miller.cu), K4 (finalexp.cu), K5 (pow2.cu) and K6 (ladder_var.cu).
+// (miller.cu), K4 (finalexp.cu), K5 (pow2.cu), K6 (ladder_var.cu), K7
+// (sum.cu, a group per complete add) and K8 (glv.cu).
 //
 // A group of W threads owns one lane: a warp (W = GROUP) for K3 and K4, a
 // quarter (G1) or half (G2) a warp for K6, a quarter warp for K2 (2
-// threads on G1 where the lanes fill the card), 2 threads for K5.  The
+// threads on G1 where the lanes fill the card), 2 threads for K5, and
+// fp12prog.WIDTH's for K7 and K8.  The
 // lane's field values sit in shared memory, one Fp per slot, and its work
 // is a list of phases: in a product phase every op is a Montgomery
 // product (fp_mul), in a linear phase every op is a +- b, halved mod p
@@ -220,6 +222,42 @@ DI void store_lane(uint32_t* out, const Fp* lane, int n, int64_t B,
   group_phase<W>([&](int t) {
     for (int c = t; c < n && idx < B; c += W)
       store_fp(out, c, lane[c], B, idx);
+  });
+}
+
+// The plain engine's limb tensors, one pointer a coordinate, which K7 and
+// K8 read and write themselves (no word layout around their launches):
+// coordinate c of lane b at c[c] + 24 b (field.cuh load_fp_limbs).
+constexpr int MAX_COORDS = 12;
+struct Limbs { int64_t* c[MAX_COORDS]; };
+
+static inline Limbs limbs_of(const void* const* ptrs, int n) {
+  Limbs l = {};
+  for (int i = 0; i < n && i < MAX_COORDS; i++) l.c[i] = (int64_t*)ptrs[i];
+  return l;
+}
+
+// Lane I/O of n coordinates at slots 0 .. n-1 from and to the limb
+// tensors, as load_lane / store_lane do from the word layout.
+template <int W>
+DI void load_lane_limbs(Fp* lane, const Limbs& in, int n, int64_t B,
+                        int64_t idx) {
+  const int64_t src = idx < B ? idx : B - 1;
+  group_phase<W>([&](int t) {
+    for (int c = t; c < n; c += W) {
+      Fp x;
+      load_fp_limbs(x, in.c[c], src);
+      slot_store(lane + c, x);
+    }
+  });
+}
+
+template <int W>
+DI void store_lane_limbs(const Limbs& out, const Fp* lane, int n, int64_t B,
+                         int64_t idx) {
+  group_phase<W>([&](int t) {
+    for (int c = t; c < n && idx < B; c += W)
+      store_fp_limbs(out.c[c], slot_load(lane + c), idx);
   });
 }
 

@@ -39,20 +39,6 @@
 
 using namespace drand;
 
-DI void load_fp_limbs(Fp& r, const int64_t* x, int64_t lane) {
-  const int64_t* p = x + lane * 24;
-  UNROLL for (int w = 0; w < 12; w++)
-    r.v[w] = (uint32_t)p[2 * w] | ((uint32_t)p[2 * w + 1] << 16);
-}
-
-DI void store_fp_limbs(int64_t* out, const Fp& a, int64_t lane) {
-  int64_t* p = out + lane * 24;
-  UNROLL for (int w = 0; w < 12; w++) {
-    p[2 * w] = a.v[w] & 0xffffu;
-    p[2 * w + 1] = a.v[w] >> 16;
-  }
-}
-
 constexpr int K1_TABLE = 16;       // odd powers up to x^31: window 5
 constexpr int K1_THREADS = 128;    // threads a block
 constexpr int K1_SQR = -1;         // a squaring in the digit schedule

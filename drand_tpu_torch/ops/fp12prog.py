@@ -1,9 +1,11 @@
-"""Fp programs of the group-per-lane kernels: K3 and K4 (Fp12), K6 and K2
-(points), K5 (an Fp2 power chain).
+"""Fp programs of the group-per-lane kernels: K3 and K4 (Fp12), K6, K2, K7
+and K8 (points), K5 (an Fp2 power chain).
 
 K3 (``csrc/miller.cu``) and K4 (``csrc/finalexp.cu``) run one warp,
 ``GROUP`` = 32 threads, per pairing lane; K6 (``csrc/ladder_var.cu``) and
-K2 (``csrc/ladder.cu``) run ``WIDTH[kind]`` threads per ladder lane.  A
+K2 (``csrc/ladder.cu``) run ``WIDTH[kind]`` threads per ladder lane, K8
+(``csrc/glv.cu``) per GLV ladder lane and K7 (``csrc/sum.cu``) per
+complete add of a point sum.  A
 lane's field values live in shared memory, one Fp (12 words) per slot, and
 its work is straight-line Fp code cut into phases: in a product phase
 every op is a Montgomery product, in a linear phase every op is a +- b,
@@ -24,7 +26,9 @@ by the binary extended gcd), the Miller steps with the field values of
 ``kernels.dbl_step`` / ``kernels.add_step``, K6's ladder step (the
 Jacobian double and complete add of ``curve.DevCurve`` over Fp (G1) or Fp2
 (G2) and the selects that pick the step's result), K2's double and
-complete add, which the bits of its public scalar schedule, and K5's Fp2
+complete add, which the bits of its public scalar schedule, K7's one
+complete add of two points of a sum, K8's step (a double, the table
+entry its two bits pick, and ``curve.add_mixed``), and K5's Fp2
 squaring and products by a table of odd powers or their conjugates, which
 the window digits of its public exponent schedule.  Sums are kept
 as linear forms over computed values and built as balanced add trees only
@@ -36,7 +40,8 @@ no op of a phase writes a slot another op of that phase reads.
 
 Field values are unique, so these programs give the plain versions'
 results (``kernels.miller_loop_plain``, ``final_exponentiation_plain``,
-``scalar_mul_bits_plain``, ``scalar_mul_fixed_plain``) limb for limb.  What
+``scalar_mul_bits_plain``, ``scalar_mul_fixed_plain``,
+``sum_rows_plain``, ``scalar_mul_glv_mixed_plain``) limb for limb.  What
 fixes a representative is kept: the Miller steps' line coefficients, the
 order of updates to f, the hard part's chain, and the group law's field
 values (the one point double, K6's and K2's, reaches DevCurve.double's
@@ -926,23 +931,27 @@ def _pt_init(g, n, lay):
         g.out(lay["FIN2"], g.sel(inf2, g.zero(), g.eq(g.zero(), g.zero())))
 
 
-def _pt_add(g, n, lay, acc, cond):
-    """DevCurve.add(acc, P) with its field values (the embedded doubling
-    for acc == P included) where the flag cond() is set, else acc (cond
-    builds the flag after the add's flags, which fixes the op order).
+def _pt_operand(g, n, lay):
+    """K6's and K2's right operand P and its Z2^2, Z2^3 (made by init)."""
+    return (_k6_point(g, lay["PT"], n),
+            (_k6_elem(g, lay["ZZ"], n), _k6_elem(g, lay["ZZZ"], n)))
+
+
+def _pt_add(g, n, acc, q, zz, cond):
+    """DevCurve.add(acc, q) with its field values (the embedded doubling
+    for acc == q included) where the flag cond() is set, else acc (cond
+    builds the flag after the add's flags, which fixes the op order); zz
+    holds q's Z2^2 and Z2^3.
 
     The plain version's selects (curve.py add) give: acc where cond is
-    clear; else P where inf1; else the embedded double where U1 == U2 and
+    clear; else q where inf1; else the embedded double where U1 == U2 and
     S1 == S2, infinity where U1 == U2 alone, the generic sum where U1 !=
     U2 (in add, same_x carries ~inf1 & ~inf2, which these branches
-    already have; cond carries ~inf2).  The same picks are made here as
-    one chain of selects under disjoint flags, ordered so that the generic
-    sum, which is ready last, is picked last."""
-    X2, Y2, Z2 = _k6_point(g, lay["PT"], n)
-    Z2Z2 = _k6_elem(g, lay["ZZ"], n)
-    t1 = _k6_elem(g, lay["ZZZ"], n)
+    already have; cond carries ~inf2)."""
+    X2, Y2, Z2 = q
+    Z2Z2, t1 = zz
     X1, Y1, Z1 = acc
-    # DevCurve.add(acc, P), its products group by group
+    # DevCurve.add(acc, q), its products group by group
     Z1Z1, ZS = _e_sqr(Z1), _e_sqr(_e_add(Z1, Z2))
     U1, U2 = _e_mul(X1, Z2Z2), _e_mul(X2, Z1Z1)
     S1, S2 = _e_mul(Y1, t1), _e_mul(Y2, _e_mul(Z1, Z1Z1))
@@ -954,25 +963,58 @@ def _pt_add(g, n, lay, acc, cond):
     X3 = _e_sub(_e_sub(RR, J), _e_scale(V, 2))
     Y3 = _e_sub(_e_mul(rr, _e_sub(V, X3)), _e_scale(_e_mul(S1, J), 2))
     dbl = _pt_double(g, acc)
-    # the flags, then the picks
     zero = _e_const(g, 0, n)
-    f0 = g.zero()
     inf1 = _e_eq(g, Z1, zero)
     eq_u, eq_s = _e_eq(g, U1, U2), _e_eq(g, S1, S2)
-    cond = cond()
+    return _pt_picks(g, acc, q, dbl, (X3, Y3, Z3), inf1, eq_u, eq_s, cond())
+
+
+def _pt_add_mixed(g, n, acc, t, cond):
+    """curve.add_mixed(acc, t) with its field values, t = (X2, Y2) affine
+    and never infinity (Z2 = 1 drops five of the complete add's products),
+    where the flag cond() is set, else acc.  Its selects give, in the
+    plain version's precedence: (X2, Y2, 1) where acc is infinite; else
+    the embedded double where U2 == X1 and S2 == Y1, infinity where U2 ==
+    X1 alone, the generic sum where U2 != X1."""
+    X2, Y2 = t
+    X1, Y1, Z1 = acc
+    Z1Z1 = _e_sqr(Z1)
+    U2, S2 = _e_mul(X2, Z1Z1), _e_mul(Y2, _e_mul(Z1, Z1Z1))
+    H = _e_sub(U2, X1)
+    HH = _e_scale(H, 2)
+    rr = _e_scale(_e_sub(S2, Y1), 2)
+    I = _e_sqr(HH)
+    J, V, RR = _e_mul(H, I), _e_mul(X1, I), _e_sqr(rr)
+    Z3 = _e_mul(Z1, HH)
+    X3 = _e_sub(_e_sub(RR, J), _e_scale(V, 2))
+    Y3 = _e_sub(_e_mul(rr, _e_sub(V, X3)), _e_scale(_e_mul(Y1, J), 2))
+    dbl = _pt_double(g, acc)
+    zero, one = _e_const(g, 0, n), _e_const(g, 1, n)
+    inf1 = _e_eq(g, Z1, zero)
+    eq_u, eq_s = _e_eq(g, U2, X1), _e_eq(g, S2, Y1)
+    return _pt_picks(g, acc, (X2, Y2, one), dbl, (X3, Y3, Z3), inf1, eq_u,
+                     eq_s, cond())
+
+
+def _pt_picks(g, acc, at_inf1, dbl, gen, inf1, eq_u, eq_s, cond):
+    """The result of an add as one chain of selects under disjoint flags,
+    ordered so that the generic sum, which is ready last, is picked last:
+    acc where cond is clear; else at_inf1 where inf1; else dbl where eq_u
+    and eq_s, infinity where eq_u alone, gen where eq_u is clear."""
+    n = len(acc[0])
+    f0 = g.zero()
     c_pt = g.sel(cond, inf1, f0)
     c_add = g.sel(inf1, f0, cond)
     c_u = g.sel(c_add, eq_u, f0)
     c_dbl, c_inf = g.sel(c_u, eq_s, f0), g.sel(eq_s, f0, c_u)
     c_gen = g.sel(eq_u, f0, c_add)
-    one = _e_const(g, 1, n)
+    one, zero = _e_const(g, 1, n), _e_const(g, 0, n)
     out = []
-    for a, p, inf, d, gen in zip(acc, (X2, Y2, Z2), (one, one, zero), dbl,
-                                 (X3, Y3, Z3)):
+    for a, p, inf, d, r in zip(acc, at_inf1, (one, one, zero), dbl, gen):
         v = _e_sel(g, c_pt, p, a)
         v = _e_sel(g, c_inf, inf, v)
         v = _e_sel(g, c_dbl, d, v)
-        out.append(_e_sel(g, c_gen, gen, v))
+        out.append(_e_sel(g, c_gen, r, v))
     return out
 
 
@@ -988,7 +1030,8 @@ def _k6_step(g, n):
     acc = _k6_point(g, lay["ACC"], n)
     acc2 = tuple(_mat(g, c) for c in _pt_double(g, acc))
     cond = lambda: g.sel(g.inp(lay["INF2"]), g.zero(), g.inp(lay["BIT"]))
-    _k6_out(g, lay["ACC"], _pt_add(g, n, lay, acc2, cond))
+    _k6_out(g, lay["ACC"], _pt_add(g, n, acc2, *_pt_operand(g, n, lay),
+                                   cond))
 
 
 def _k2_init(g, n):
@@ -1004,8 +1047,56 @@ def _k2_dbl(g, n):
 def _k2_add(g, n):
     """acc <- DevCurve.add(acc, P): after the double of a one bit of k."""
     lay = K2[n]
-    _k6_out(g, lay["ACC"], _pt_add(g, n, lay, _k6_point(g, lay["ACC"], n),
+    acc = _k6_point(g, lay["ACC"], n)
+    _k6_out(g, lay["ACC"], _pt_add(g, n, acc, *_pt_operand(g, n, lay),
                                    lambda: g.inp(lay["FIN2"])))
+
+
+# K7: one complete add of a point sum (csrc/sum.cu), acc <- DevCurve.add(acc,
+# Q), where Q changes at every add: its Z2^2, Z2^3 and its flag Z2 != 0 are
+# made inside the fragment.  Slots: acc at 0 (the output), Q at 3n.
+SUM = {n: dict(ACC=0, PT=3 * n, N=6 * n) for n in (1, 2)}
+
+
+def _sum_add(g, n):
+    lay = SUM[n]
+    acc = _k6_point(g, lay["ACC"], n)
+    q = _k6_point(g, lay["PT"], n)
+    zz = _e_sqr(q[2])
+    inf2 = _e_eq(g, q[2], _e_const(g, 0, n))
+    fin2 = lambda: g.sel(inf2, g.zero(), g.eq(g.zero(), g.zero()))
+    _k6_out(g, lay["ACC"], _pt_add(g, n, acc, q, (zz, _e_mul(q[2], zz)),
+                                   fin2))
+
+
+# K8: the GLV joint ladder of the RLC (csrc/glv.cu).  Slots: acc at 0 (the
+# output), the affine table P, endo(P), P + endo(P) from 3n (inputs), the
+# step's two bits as flags (the kernel writes them before each step).
+GLV = {n: dict(ACC=0, PT=3 * n, PHI=5 * n, P3=7 * n, B0=9 * n, B1=9 * n + 1,
+               N=9 * n + 2) for n in (1, 2)}
+GLV_INIT, GLV_STEP = range(2)
+
+
+def _glv_init(g, n):
+    """acc = infinity (1, 1, 0)."""
+    one, zero = _e_const(g, 1, n), _e_const(g, 0, n)
+    _k6_out(g, GLV[n]["ACC"], (one, one, zero))
+
+
+def _glv_step(g, n):
+    """acc <- 2 acc (DevCurve.double), then add_mixed(2 acc, T) where b0 |
+    b1, T = sel(b0, sel(b1, P3, P), sel(b1, endo, P)): the plain ladder's
+    selects, word by word on the bit flags, so every lane runs the same
+    operations whatever its bits."""
+    lay = GLV[n]
+    acc = _k6_point(g, lay["ACC"], n)
+    acc2 = tuple(_mat(g, c) for c in _pt_double(g, acc))
+    b0, b1 = g.inp(lay["B0"]), g.inp(lay["B1"])
+    entry = lambda k: (_k6_elem(g, lay[k], n), _k6_elem(g, lay[k] + n, n))
+    t = tuple(_e_sel(g, b0, _e_sel(g, b1, c3, c0), _e_sel(g, b1, ce, c0))
+              for c0, ce, c3 in zip(entry("PT"), entry("PHI"), entry("P3")))
+    _k6_out(g, lay["ACC"], _pt_add_mixed(g, n, acc2, t,
+                                         lambda: g.sel(b0, b0, b1)))
 
 
 # K5: Fp2 x^e for a static public e (csrc/pow2.cu).  x^p = conj(x) in Fp2
@@ -1098,6 +1189,12 @@ KINDS = {
                               lambda g: _k2_dbl(g, 2),
                               lambda g: _k2_add(g, 2)], (0, 0)),
     "pow2": pow2_kind(POW2_WINDOW),
+    "sum_g1": (SUM[1]["N"], [lambda g: _sum_add(g, 1)], (0, 0)),
+    "sum_g2": (SUM[2]["N"], [lambda g: _sum_add(g, 2)], (0, 0)),
+    "glv_g1": (GLV[1]["N"], [lambda g: _glv_init(g, 1),
+                             lambda g: _glv_step(g, 1)], (0, 0)),
+    "glv_g2": (GLV[2]["N"], [lambda g: _glv_init(g, 2),
+                             lambda g: _glv_step(g, 2)], (0, 0)),
 }
 # threads a lane: K3 / K4 a warp; K6 on G1 a quarter warp (no step phase
 # holds more than 8 products), on G2 half a warp (up to 18 Fp products a
@@ -1106,13 +1203,20 @@ KINDS = {
 # were fastest, or within 2 %, at every K2 shape of the main paths:
 # tools/torch_group_variants.py, PERF.md); K5 2 threads (its squaring's
 # two products; 1 and 4 threads were slower at every K5 shape of the main
-# paths, the same tool).  csrc/ladder_var.cu, csrc/ladder.cu and
-# csrc/pow2.cu compile the same widths and check them at launch.
+# paths, the same tool); K7 (threads an add) 8 on G1 and 16 on G2, where a
+# launch leaves the card idle and a sum's chain of adds sets its time; K8
+# 4 threads on G1 and 8 on G2, fastest at every K8 shape of the main paths
+# (shared memory holds 132 and 56 of its lanes an SM, so a wider group
+# idles more issue slots than it saves in chain, PERF.md).
+# csrc/ladder_var.cu, csrc/ladder.cu, csrc/pow2.cu, csrc/sum.cu and
+# csrc/glv.cu compile the same widths and check them at launch.
 WIDTH = {"miller": GROUP, "finalexp": GROUP, "ladder_g1": 8,
-         "ladder_g2": 16, "fixed_g1": 8, "fixed_g2": 8, "pow2": 2}
-# K2-G1's second width, for launches whose lanes fill the card, where idle
-# threads cost issue slots (kernels.fixed_width; csrc/ladder.cu)
-FILL_WIDTH = {"fixed_g1": 2}
+         "ladder_g2": 16, "fixed_g1": 8, "fixed_g2": 8, "pow2": 2,
+         "sum_g1": 8, "sum_g2": 16, "glv_g1": 4, "glv_g2": 8}
+# The second width of K2-G1 (kernels.fixed_width) and of K7
+# (kernels.sum_width), for launches that fill the card, where idle threads
+# cost issue slots (csrc/ladder.cu, csrc/sum.cu)
+FILL_WIDTH = {"fixed_g1": 2, "sum_g1": 4, "sum_g2": 8}
 
 
 @lru_cache(maxsize=None)
@@ -1220,6 +1324,10 @@ def schedule(kind, xbits=None):
         return pow2_schedule(xbits)
     if kind.startswith("ladder"):
         return [K6_INIT] + [BIT_FLAG, K6_STEP] * len(xbits)
+    if kind.startswith("glv"):
+        return [GLV_INIT] + [BIT_FLAG, GLV_STEP] * len(xbits)
+    if kind.startswith("sum"):
+        return [0]
     xbits = XBITS if xbits is None else xbits
     loop = lambda step, add: [f for b in xbits
                               for f in ((step, add) if b else (step,))]

@@ -23,10 +23,13 @@ recovery, both signature groups) has a hand-written CUDA C++ kernel
                                                            G1 and G2)
      (K6 runs a thread group per lane over fp12prog.py's point programs,
       one operation sequence for every scalar; csrc/group.cuh)
-  K7 sum_tiles         <- pallas_field._sum_call          (csrc/sum.cu,
+  K7 sum_rows          <- pallas_field._sum_call          (csrc/sum.cu,
                                                            G1 and G2)
+     (a batch of whole sums in one launch, pallas_field.sum_points' tiles,
+      padded partials and fold; a thread group per complete add)
   K8 scalar_mul_glv_mixed <- pallas_field._ladder_glv_mixed_call
                                                    (csrc/glv.cu, G1 and G2)
+     (a thread group per lane over fp12prog.py's point programs)
 
 Each wrapper takes the plain engine's ``(..., 24)`` int64 Montgomery limbs
 (a G2 point: Fp2 pairs of them, and the wrapper dispatches on that arity).
@@ -70,12 +73,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"pow_fixed": 0, "scalar_mul_fixed": 0, "miller_loop": 0,
-            "final_exponentiation": 0, "sum_tiles": 0,
+            "final_exponentiation": 0, "sum_rows": 0,
             "scalar_mul_glv_mixed": 0, "pow_fixed_fp2": 0,
-            "scalar_mul_fixed_g2": 0, "sum_tiles_g2": 0,
+            "scalar_mul_fixed_g2": 0, "sum_rows_g2": 0,
             "scalar_mul_glv_mixed_g2": 0, "scalar_mul_bits": 0,
             "scalar_mul_bits_g2": 0}
-# (wrapper, exponent / scalar / ladder bits / None, lanes)
+# (wrapper, exponent / scalar / ladder bits / rows / None, lanes)
 SHAPES = collections.Counter()
 
 TILE = 256          # lanes one K7 block reduces (pallas_field.TILE)
@@ -191,23 +194,26 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     vp]
     lib.drand_miller.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
     lib.drand_finalexp.argtypes = [vp, vp, vp, vp, i32, vp, i32, i64, vp]
-    lib.drand_sum_g1.argtypes = [vp, vp, i64, vp]
-    lib.drand_glv_g1.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_sum_g1.argtypes = [vp, vp, vp, vp, i32, i32, vp, vp, vp, i32,
+                                 i64, vp]
+    lib.drand_glv_g1.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32, i64, vp]
     lib.drand_pow2.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32, i64, vp]
     lib.drand_ladder_g2.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32, i64,
                                     vp]
-    lib.drand_sum_g2.argtypes = [vp, vp, i64, vp]
-    lib.drand_glv_g2.argtypes = [vp, vp, vp, i32, i64, vp]
+    lib.drand_sum_g2.argtypes = lib.drand_sum_g1.argtypes
+    lib.drand_glv_g2.argtypes = lib.drand_glv_g1.argtypes
     lib.drand_ladder_var_g1.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32,
                                         i64, vp]
     lib.drand_ladder_var_g2.argtypes = [vp, vp, vp, vp, i32, i32, vp, i32,
                                         i64, vp]
     lib.drand_group_layout.argtypes = [i32, i32, vp]
+    lib.drand_sum_layout.argtypes = [i32, i32, vp]
     for fn in (lib.drand_pow, lib.drand_inv, lib.drand_ladder_g1,
                lib.drand_miller, lib.drand_finalexp, lib.drand_sum_g1,
                lib.drand_glv_g1, lib.drand_pow2, lib.drand_ladder_g2,
                lib.drand_sum_g2, lib.drand_glv_g2, lib.drand_ladder_var_g1,
-               lib.drand_ladder_var_g2, lib.drand_group_layout):
+               lib.drand_ladder_var_g2, lib.drand_group_layout,
+               lib.drand_sum_layout):
         fn.restype = ctypes.c_int
     return lib
 
@@ -236,6 +242,13 @@ def _on_card(t) -> bool:
 
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptrs(ts):
+    """A host array of the tensors' data pointers (csrc/group.cuh Limbs):
+    the kernels that read and write limb tensors themselves take one
+    pointer a coordinate."""
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +293,9 @@ def const_bundle(device: str) -> torch.Tensor:
 @lru_cache(maxsize=None)
 def program_tensor(kind: str, device: str) -> torch.Tensor:
     """fp12prog's int32 program table for K3 ("miller"), K4 ("finalexp"),
-    K6 ("ladder_g1", "ladder_g2"), K2 ("fixed_g1", "fixed_g2") or K5
-    ("pow2") on `device`."""
+    K6 ("ladder_g1", "ladder_g2"), K2 ("fixed_g1", "fixed_g2"), K5
+    ("pow2"), K7 ("sum_g1", "sum_g2") or K8 ("glv_g1", "glv_g2") on
+    `device`."""
     return torch.from_numpy(FP.program(kind)).to(device)
 
 
@@ -306,11 +320,13 @@ def _group_launch(fn, kind, x, out, dev, name):
 
 def group_layout(kind, width=None):
     """(lanes a block, dynamic shared-memory bytes a block) of a K2, K3,
-    K4, K5 or K6 launch, as csrc/group.cuh computes them for the program's
-    slots and a width (default fp12prog.WIDTH)."""
+    K4, K5, K6 or K8 launch, as csrc/group.cuh computes them for the
+    program's slots and a width (default fp12prog.WIDTH); for K7 ("sum_g1"
+    / "sum_g2") adds a block, as csrc/sum.cu computes them."""
     out = (ctypes.c_int32 * 2)()
-    _lib().drand_group_layout(FP.compiled(kind)[1],
-                              width or FP.WIDTH[kind], out)
+    fn = (_lib().drand_sum_layout if kind.startswith("sum")
+          else _lib().drand_group_layout)
+    fn(FP.compiled(kind)[1], width or FP.WIDTH[kind], out)
     return out[0], out[1]
 
 
@@ -671,7 +687,7 @@ def pow_fixed_fp2(a, e: int):
 
 
 # ---------------------------------------------------------------------------
-# K7: per-tile point sum
+# K7: point sums, a batch of them in one launch
 # ---------------------------------------------------------------------------
 
 def sum_tiles_plain(p):
@@ -691,23 +707,16 @@ def sum_tiles_plain(p):
 
 def sum_tiles(p):
     """Jacobian points of either curve, (B, 24) limbs per Fp coordinate, B
-    a multiple of TILE -> the sum of each tile, (B / TILE, 24) each."""
+    a multiple of TILE -> the sum of each tile, (B / TILE, 24) each: on
+    the card sum_rows over rows of one tile (one tile is one stage)."""
     leaves = _flat(p)
-    if leaves[0].shape[0] % TILE:
+    n = leaves[0].shape[0]
+    if n % TILE:
         raise ValueError(f"sum_tiles needs a multiple of {TILE} lanes, "
-                         f"got {leaves[0].shape[0]}")
+                         f"got {n}")
     if not _on_card(leaves[0]):
         return sum_tiles_plain(p)
-    g2 = _is_g2(p)
-    x = to_words(leaves)
-    n = x.shape[-1]
-    out = torch.empty((len(leaves), 12, n // TILE), dtype=torch.int32,
-                      device=x.device)
-    fn = _lib().drand_sum_g2 if g2 else _lib().drand_sum_g1
-    name = "sum_tiles_g2" if g2 else "sum_tiles"
-    _check(fn(x.data_ptr(), out.data_ptr(), n, _stream(x.device)), name)
-    _count(name, None, n)
-    return _unflat(from_words(out, (n // TILE,)), g2)
+    return sum_rows(_tmap(lambda c: c.reshape(n // TILE, TILE, L.NLIMB), p))
 
 
 def _pad_lanes(p, lanes: int):
@@ -720,19 +729,16 @@ def _pad_lanes(p, lanes: int):
                                      0), p)
 
 
-def sum_points(p):
-    """Sum a G1 or G2 point batch over its leading axis
-    (pallas_field.sum_points).
-
-    Each K7 launch reduces every TILE-lane tile to one point; the per-tile
-    partials, zero-padded, are the lanes of the next launch until one tile
-    remains.  Two to four partials are folded in order with complete adds,
-    as the JAX package folds them in XLA.  8192 lanes: two launches."""
+def sum_points_plain(p):
+    """pallas_field.sum_points' association: every TILE-lane tile reduced
+    to one point (sum_tiles_plain); the per-tile partials, zero-padded,
+    reduced again until one tile remains; two to four partials folded in
+    order with complete adds, as the JAX package folds them in XLA."""
     curve = _curve(p)
     n = _leaf(p[0]).shape[0]
     pts = _pad_lanes(p, max(TILE, -(-n // TILE) * TILE))
     while True:
-        part = sum_tiles(pts)
+        part = sum_tiles_plain(pts)
         ntiles = _leaf(part[0]).shape[0]
         if ntiles == 1:
             return _tmap(lambda c: c[0], part)
@@ -742,6 +748,72 @@ def sum_points(p):
                 acc = curve.add(acc, _tmap(lambda c: c[i], part))
             return acc
         pts = _pad_lanes(part, -(-ntiles // TILE) * TILE)
+
+
+# K7's width (threads an add): fp12prog.WIDTH while a launch leaves the card
+# idle and a sum's chain of adds sets its time; fp12prog.FILL_WIDTH from
+# this many tiles (rows x tiles of the first stage, a block each) on, where
+# idle threads cost issue slots (2 x 8192 lanes, 64 tiles, ran fastest at
+# the first, 8 x 14,336, 448 tiles, at the second; PERF.md).
+K7_FILL_TILES = 256
+
+
+def sum_width(kind: str, tiles: int) -> int:
+    """The width K7 ("sum_g1" / "sum_g2") runs a launch of `tiles` tiles
+    at."""
+    return FP.FILL_WIDTH[kind] if tiles >= K7_FILL_TILES else FP.WIDTH[kind]
+
+
+def sum_rows_plain(p):
+    """sum_points_plain of each row, stacked."""
+    rows = [sum_points_plain(_tmap(lambda c: c[r], p))
+            for r in range(_leaf(p[0]).shape[0])]
+    return _tmap(lambda *xs: torch.stack(xs), *rows)
+
+
+def sum_rows(p):
+    """R sums of B points each: Jacobian points of either curve, (R, B, 24)
+    limbs per Fp coordinate -> (R, 24) each, every row in
+    pallas_field.sum_points' association (sum_points_plain).  One launch
+    runs every stage of every row and reads and writes the limb tensors
+    itself; its scratch (the tiles' running lanes, the rows' partials and
+    tickets) is allocated here."""
+    leaves = _flat(p)
+    if not _on_card(leaves[0]):
+        return sum_rows_plain(p)
+    if leaves[0].dtype != L.DTYPE:
+        raise TypeError(f"sum_rows: limbs must be {L.DTYPE}, "
+                        f"got {leaves[0].dtype}")
+    g2 = _is_g2(p)
+    shape = torch.broadcast_shapes(*(c.shape for c in leaves))
+    rows, lanes = shape[0], shape[1]
+    ins = [c.expand(shape).contiguous() for c in leaves]
+    dev = ins[0].device
+    alloc = torch.empty if lanes else torch.zeros   # no lanes: zero sums
+    outs = [alloc((rows, L.NLIMB), dtype=L.DTYPE, device=dev) for _ in ins]
+    kind = "sum_g2" if g2 else "sum_g1"
+    name = "sum_rows_g2" if g2 else "sum_rows"
+    tiles = -(-lanes // TILE)
+    nw = len(ins) * 12                     # words a point
+    work = torch.empty(rows * tiles * (TILE // 2) * nw, dtype=torch.int32,
+                       device=dev)
+    part = torch.empty(rows * tiles * nw, dtype=torch.int32, device=dev)
+    tickets = torch.zeros(rows, dtype=torch.int32, device=dev)
+    fn = _lib().drand_sum_g2 if g2 else _lib().drand_sum_g1
+    sdev = str(dev)
+    _check(fn(_ptrs(ins), _ptrs(outs), const_bundle(sdev).data_ptr(),
+              program_tensor(kind, sdev).data_ptr(), FP.compiled(kind)[1],
+              sum_width(kind, rows * tiles), work.data_ptr(),
+              part.data_ptr(),
+              tickets.data_ptr(), rows, lanes, _stream(dev)), name)
+    _count(name, rows, lanes)
+    return _unflat(outs, g2)
+
+
+def sum_points(p):
+    """Sum a G1 or G2 point batch over its leading axis
+    (pallas_field.sum_points): sum_rows of one row."""
+    return _tmap(lambda c: c[0], sum_rows(_tmap(lambda c: c[None], p)))
 
 
 # ---------------------------------------------------------------------------
@@ -767,22 +839,30 @@ def scalar_mul_glv_mixed_plain(pt, phi, p3, bits0, bits1):
 def scalar_mul_glv_mixed(pt, phi, p3, bits0, bits1):
     """Joint GLV ladder: affine tables (x, y) of (B, 24) limbs per Fp
     coordinate (Fp2 pairs on G2) and MSB-first bit planes (nbits, B) -> a
-    Jacobian point per lane."""
+    Jacobian point per lane.  The kernel reads and writes the limb tensors
+    itself and runs the same operations whatever the bits."""
     leaves = _flat(pt) + _flat(phi) + _flat(p3)
     if not _on_card(leaves[0]):
         return scalar_mul_glv_mixed_plain(pt, phi, p3, bits0, bits1)
+    if leaves[0].dtype != L.DTYPE:
+        raise TypeError(f"scalar_mul_glv_mixed: limbs must be {L.DTYPE}, "
+                        f"got {leaves[0].dtype}")
     g2 = _is_g2(pt)
-    shape = leaves[0].shape[:-1]
-    x = to_words(leaves)
-    n = x.shape[-1]
+    shape = torch.broadcast_shapes(*(c.shape for c in leaves))
+    tab = [c.expand(shape).reshape(-1, L.NLIMB).contiguous() for c in leaves]
+    n = tab[0].shape[0]
+    dev = tab[0].device
     nbits = bits0.shape[0]
     bits = torch.stack([bits0.reshape(nbits, n), bits1.reshape(nbits, n)]
-                       ).to(device=x.device, dtype=torch.int32).contiguous()
-    out = torch.empty((6 if g2 else 3, 12, n), dtype=torch.int32,
-                      device=x.device)
+                       ).to(device=dev, dtype=torch.int32).contiguous()
+    outs = [torch.empty((n, L.NLIMB), dtype=L.DTYPE, device=dev)
+            for _ in range(6 if g2 else 3)]
+    kind = "glv_g2" if g2 else "glv_g1"
     fn = _lib().drand_glv_g2 if g2 else _lib().drand_glv_g1
     name = "scalar_mul_glv_mixed_g2" if g2 else "scalar_mul_glv_mixed"
-    _check(fn(x.data_ptr(), bits.data_ptr(), out.data_ptr(), nbits, n,
-              _stream(x.device)), name)
+    sdev = str(dev)
+    _check(fn(_ptrs(tab), _ptrs(outs), const_bundle(sdev).data_ptr(),
+              program_tensor(kind, sdev).data_ptr(), FP.compiled(kind)[1],
+              FP.WIDTH[kind], bits.data_ptr(), nbits, n, _stream(dev)), name)
     _count(name, nbits, n)
-    return _unflat(from_words(out, shape), g2)
+    return _unflat([o.reshape(shape) for o in outs], g2)

@@ -143,8 +143,8 @@ def test_verify_chain_linkage_and_split_sums_at_pad_16(monkeypatch):
     verifies over its own (wrong) previous_sig: its signature is good, its
     link to round 5 is broken, and so is round 7's link to it.  Every
     signature verifies, so one RLC pass and no exact pass; with the bit
-    planes injected (pad lanes zero), the pass's two point sums are
-    sum k_i S_i and sum k_i H_i."""
+    planes injected (pad lanes zero), the pass's two point sums, the two
+    rows of one sum_rows, are sum k_i S_i and sum k_i H_i."""
     n, pad = len(CHAIN_ROUNDS), 16
     beacons = [Beacon(r, s, p)
                for r, s, p in zip(CHAIN_ROUNDS, CHAIN, CHAIN_PREVS)]
@@ -155,8 +155,8 @@ def test_verify_chain_linkage_and_split_sums_at_pad_16(monkeypatch):
     monkeypatch.setattr(B, "_device_rlc_bits",
                         lambda keys, mask, split=2: CV.rlc_bits(b))
     sums = []
-    real = K.sum_points
-    monkeypatch.setattr(K, "sum_points", lambda p: sums.append(real(p))
+    real = K.sum_rows
+    monkeypatch.setattr(K, "sum_rows", lambda p: sums.append(real(p))
                         or sums[-1])
     v = verifier(CHAINED)
     (all_ok, valid), passes = passes_of(lambda: v.verify_chain(beacons))
@@ -169,12 +169,13 @@ def test_verify_chain_linkage_and_split_sums_at_pad_16(monkeypatch):
     msgs = v._messages([bc.round for bc in beacons],
                        [bc.previous_sig for bc in beacons])
     h_pts = [H2C.hash_to_curve_g2(m, CHAINED.dst) for m in msgs]
-    one = lambda pt: DC._tmap(lambda t: t[None], pt)
-    for got, pts in zip(sums, (sig_pts, h_pts)):
+    (rows,) = sums                   # the two sums: the rows of one K7
+    for i, pts in enumerate((sig_pts, h_pts)):
+        got = DC._tmap(lambda t: t[i:i + 1], rows)
         want = None
         for pt, ki in zip(pts, k):
             want = JG2.add(want, JG2.mul(pt, ki))
-        assert DC.decode_g2_points(one(got)) == [want]
+        assert DC.decode_g2_points(got) == [want]
 
 
 def test_wire_parse_matches_jax():

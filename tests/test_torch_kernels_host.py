@@ -222,20 +222,20 @@ def _sum_input(n):
 
 @pytest.mark.parametrize("n", [256, 512])
 def test_sum_kernel_matches_plain(kernel_path, n):
+    """sum_tiles on the kernel path: sum_rows over rows of one tile."""
     pts = _sum_input(n)
     got = K.sum_tiles(pts)
-    assert kernel_path["sum_tiles"] == 1
-    assert K.SHAPES == {("sum_tiles", None, n): 1}
+    assert kernel_path["sum_rows"] == 1
+    assert K.SHAPES == {("sum_rows", n // K.TILE, K.TILE): 1}
     _same(got, K.sum_tiles_plain(pts))
     assert got[0].shape == (n // K.TILE, 24)
 
 
 def test_sum_points_kernel_path_matches_plain(kernel_path, monkeypatch):
-    """1280 lanes: one launch over 5 tiles, one over the 5 partials padded
-    to a tile; 3 lanes: padded to one tile."""
-    for n, shapes in ((1280, {("sum_tiles", None, 1280): 1,
-                              ("sum_tiles", None, 256): 1}),
-                      (3, {("sum_tiles", None, 256): 1})):
+    """1280 lanes: one launch, its 5 tiles and the 5 partials padded to a
+    tile; 3 lanes: one launch, a tile of 3 live lanes."""
+    for n, shapes in ((1280, {("sum_rows", 1, 1280): 1}),
+                      (3, {("sum_rows", 1, 3): 1})):
         pts = _sum_input(n)
         K.reset_launches()
         got = K.sum_points(pts)
@@ -355,8 +355,8 @@ def test_sum_g2_kernel_matches_plain(kernel_path):
     n = K.TILE
     pts = _g2_sum_input(n)
     got = K.sum_tiles(pts)
-    assert kernel_path["sum_tiles_g2"] == 1
-    assert K.SHAPES == {("sum_tiles_g2", None, n): 1}
+    assert kernel_path["sum_rows_g2"] == 1
+    assert K.SHAPES == {("sum_rows_g2", 1, n): 1}
     _same(K._flat(got), K._flat(K.sum_tiles_plain(pts)))
     assert got[0][0].shape == (n // K.TILE, 24)
 
@@ -364,7 +364,7 @@ def test_sum_g2_kernel_matches_plain(kernel_path):
 def test_sum_points_g2_kernel_path_matches_plain(kernel_path, monkeypatch):
     pts = _g2_sum_input(5)
     got = K.sum_points(pts)
-    assert dict(K.SHAPES) == {("sum_tiles_g2", None, 256): 1}
+    assert dict(K.SHAPES) == {("sum_rows_g2", 1, 5): 1}
     monkeypatch.setattr(K, "_on_card", lambda t: False)
     _same(K._flat(got), K._flat(K.sum_points(pts)))
 
@@ -688,3 +688,166 @@ def test_pow2_group_kernel_refuses_an_uncompiled_width(kernel_path,
     with pytest.raises(RuntimeError, match="pow_fixed_fp2"):
         K.pow_fixed_fp2(_rand_fp2(3), E2)
     assert kernel_path["pow_fixed_fp2"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K7: a batch of sums in one launch; K8 on a thread group a lane
+# ---------------------------------------------------------------------------
+
+def _sum_rows_input(g2, rows, lanes):
+    """rows x lanes Jacobian points from a few members, an outsider and
+    infinity (repeats meet at level 128: the doubling); in row 0 lane 1 =
+    -lane 0 and, past 130 lanes, lane 128 = -lane 0 and lane 130 = lane 2
+    (P == -Q and P == Q at level 128); row 1, where there is one, all
+    infinity."""
+    if g2:
+        base = DC.encode_g2_points(_g2_points())
+    else:
+        base = tuple(c[:6] for c in _points())
+    nb = K._flat(base)[0].shape[0]
+    idx = [RNG.randrange(nb) for _ in range(rows * lanes)]
+    pts = DC._tmap(lambda c: c[idx].reshape(rows, lanes, 24).clone(), base)
+    curve = K._curve(base)
+    neg = curve.neg(DC._tmap(lambda c: c[0, :1], pts))
+    inf = curve.infinity_like(K._flat(pts)[0][0])
+    for c, d, i in zip(K._flat(pts), K._flat(neg), K._flat(inf)):
+        if lanes > 1:
+            c[0, 1] = d[0]
+        if lanes > 130:
+            c[0, 128], c[0, 130] = d[0], c[0, 2]
+        if rows > 1:
+            c[1] = i
+    return pts
+
+
+K7_CASES = [(False, 1, 1), (False, 2, 255), (False, 8, 256),
+            (False, 2, 257), (False, 1, 1024), (False, 1, 8192),
+            (True, 1, 1), (True, 2, 257), (True, 1, 1024)]
+
+
+@pytest.mark.parametrize("g2,rows,lanes", K7_CASES,
+                         ids=[f"{'g2' if g else 'g1'}-{r}x{n}"
+                              for g, r, n in K7_CASES])
+def test_sum_rows_kernel_matches_plain(kernel_path, g2, rows, lanes):
+    """One launch a batch: every row equals sum_rows' plain twin (each row
+    in pallas_field.sum_points' association: 1,024 lanes fold 4 partials,
+    8,192 take a second stage) and the kernel's sum_points of that row
+    alone; an all-infinity row sums to infinity."""
+    pts = _sum_rows_input(g2, rows, lanes)
+    got = K.sum_rows(pts)
+    name = "sum_rows_g2" if g2 else "sum_rows"
+    assert dict(K.SHAPES) == {(name, rows, lanes): 1}
+    assert K._flat(got)[0].shape == (rows, 24)
+    K.reset_launches()
+    _same(K._flat(got), K._flat(K.sum_rows_plain(pts)))
+    assert sum(kernel_path.values()) == 0      # the plain twin launches none
+    for r in range(rows):
+        one = K.sum_points(DC._tmap(lambda c: c[r], pts))
+        _same(K._flat(one), [c[r] for c in K._flat(got)])
+    if rows > 1:
+        assert K._curve(pts).is_infinity(got)[1]
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+@pytest.mark.parametrize("fill", [False, True], ids=["width", "fill"])
+def test_sum_rows_kernel_at_each_compiled_width(kernel_path, monkeypatch,
+                                                g2, fill):
+    """K7 at fp12prog.WIDTH and at FILL_WIDTH (kernels.sum_width picks the
+    second from K7_FILL_TILES tiles on): the same limbs."""
+    monkeypatch.setattr(K, "K7_FILL_TILES", 1 if fill else 1 << 30)
+    kind = "sum_g2" if g2 else "sum_g1"
+    assert K.sum_width(kind, 1) == (FP.FILL_WIDTH if fill
+                                    else FP.WIDTH)[kind]
+    pts = _sum_rows_input(g2, 2 if g2 else 3, 257 if g2 else 300)
+    _same(K._flat(K.sum_rows(pts)), K._flat(K.sum_rows_plain(pts)))
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_sum_rows_padding_costs_nothing_and_changes_nothing(kernel_path, g2):
+    """A tile of 200 live lanes (the kernel runs no add on its 56 padding
+    lanes) gives the limbs of the full halving over the tile zero-padded
+    to 256; and an add of a zero-padding lane returns its left operand
+    limb for limb, infinity lanes included."""
+    pts = _sum_rows_input(g2, 1, 200)
+    got = K.sum_rows(pts)
+    left = DC._tmap(lambda c: c[0], pts)
+    padded = K._pad_lanes(left, K.TILE)
+    _same(K._flat(got), K._flat(K.sum_tiles_plain(padded)))
+    zero = DC._tmap(torch.zeros_like, left)
+    _same(K._flat(K._curve(left).add(left, zero)), K._flat(left))
+    _same(K._flat(K._curve(left).add(zero, zero)), K._flat(zero))
+
+
+def test_sum_rows_refuses_an_uncompiled_width(kernel_path, monkeypatch):
+    monkeypatch.setitem(FP.WIDTH, "sum_g1", 3)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        K.sum_rows(_sum_rows_input(False, 1, 5))
+
+
+def _glv_case(g2, endo_of):
+    """Affine tables of 3 lanes and their bits: step 1 (b0 only) sets acc
+    = P, step 2 (b1 only) adds the endo entry to 2P; endo_of(P) gives that
+    entry (2P: add_mixed's doubling branch, -2P: its infinity branch);
+    lane 2 then takes random b0 bits, over 8 steps."""
+    H = HG2 if g2 else HG1
+    p = [H.mul(H.gen, RNG.randrange(1, R)) for _ in range(3)]
+    ends = [endo_of(H, x) for x in p]
+    enc = DC.encode_g2_points if g2 else DC.encode_g1_points
+    aff = lambda pts: enc(pts)[:2]
+    nbits = 8
+    b0 = torch.zeros((nbits, 3), dtype=torch.int32)
+    b1 = torch.zeros((nbits, 3), dtype=torch.int32)
+    b0[0], b1[1] = 1, 1
+    b0[2:, 2] = torch.tensor([RNG.randrange(2) for _ in range(nbits - 2)])
+    return (aff(p), aff(ends), aff(p), b0, b1)
+
+
+GLV_ENDOS = {"2P": lambda H, x: H.mul(x, 2),
+             "-2P": lambda H, x: H.neg(H.mul(x, 2))}
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+@pytest.mark.parametrize("endo", list(GLV_ENDOS), ids=list(GLV_ENDOS))
+def test_glv_kernel_reaches_add_mixed_branches(kernel_path, g2, endo):
+    args = _glv_case(g2, GLV_ENDOS[endo])
+    got = K.scalar_mul_glv_mixed(*args)
+    _same(K._flat(got), K._flat(K.scalar_mul_glv_mixed_plain(*args)))
+    inf = K._curve(args[0]).is_infinity(got).tolist()
+    assert inf[:2] == [endo == "-2P"] * 2
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_glv_kernel_bit_patterns(kernel_path, g2):
+    """Bits all zero, all one, b0 only, b1 only, alternating and seeded
+    random, a lane each, 16 steps, over real tables (P, endo(P), P +
+    endo(P))."""
+    H = HG2 if g2 else HG1
+    nbits = 16
+    pts = [H.mul(H.gen, RNG.randrange(1, R)) for _ in range(6)]
+    if g2:
+        ends = [H.mul(x, X * X) for x in pts]
+    else:
+        beta = pow(2, (P - 1) // 3, P)
+        ends = [(beta * x[0] % P, x[1]) for x in pts]
+    p3s = [H.add(a, b) for a, b in zip(pts, ends)]
+    enc = DC.encode_g2_points if g2 else DC.encode_g1_points
+    alt = [i % 2 for i in range(nbits)]
+    rnd = lambda: [RNG.randrange(2) for _ in range(nbits)]
+    cols = [([0] * nbits, [0] * nbits), ([1] * nbits, [1] * nbits),
+            ([1] * nbits, [0] * nbits), ([0] * nbits, [1] * nbits),
+            (alt, [1 - a for a in alt]), (rnd(), rnd())]
+    b0 = torch.tensor([c[0] for c in cols], dtype=torch.int32).T.contiguous()
+    b1 = torch.tensor([c[1] for c in cols], dtype=torch.int32).T.contiguous()
+    args = (enc(pts)[:2], enc(ends)[:2], enc(p3s)[:2], b0, b1)
+    got = K.scalar_mul_glv_mixed(*args)
+    name = "scalar_mul_glv_mixed_g2" if g2 else "scalar_mul_glv_mixed"
+    assert dict(K.SHAPES) == {(name, nbits, 6): 1}
+    _same(K._flat(got), K._flat(K.scalar_mul_glv_mixed_plain(*args)))
+    assert K._curve(args[0]).is_infinity(got).tolist() == \
+        [True] + [False] * 5
+
+
+def test_glv_kernel_refuses_an_uncompiled_width(kernel_path, monkeypatch):
+    monkeypatch.setitem(FP.WIDTH, "glv_g1", 3)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        K.scalar_mul_glv_mixed(*glv_tables())
