@@ -37,6 +37,20 @@ package's bench config 3), for ``bls-unchained-on-g1`` (``g1_*``) and
                        recovered signature equals the collective-secret one
                        byte for byte and verifies against the group key.
 
+Above 64 rounds every verify path takes the device message front: the host
+packs message words with numpy, and H1 (csrc/h2f.cu) hashes them to the
+field at the start of the device pass (``bls-unchained-on-g1`` and
+``pedersen-bls-unchained`` the raw unchained front, ``pedersen-bls-chained``
+the raw chained one, slot 0 without a previous signature; the partials the
+DIGEST front); ``verify_batch_rlc`` also runs the FIELDS front (the host
+hash_to_field) on the same inputs, whose verdicts must be equal.
+
+  h2f_front            H1 at every shape the paths launched it (and the
+                       DIGEST front of a chained chunk with a 32-byte
+                       genesis seed) against its plain version and the
+                       host oracle (hashlib + the host hash_to_field), with
+                       its SHA-256 and xmd entries.
+
 Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
 timed; K3 and K4 (a warp a pairing lane) also at tail widths with a zero
@@ -75,9 +89,10 @@ SEED = 20240101
 
 # the kernels each main path must launch at least once
 G1_RLC_KERNELS = ("pow_fixed", "scalar_mul_fixed", "miller_loop",
-                  "final_exponentiation", "sum_rows", "scalar_mul_glv_mixed")
+                  "final_exponentiation", "sum_rows", "scalar_mul_glv_mixed",
+                  "hash_to_field")
 G2_EXACT_KERNELS = ("pow_fixed", "pow_fixed_fp2", "scalar_mul_fixed_g2",
-                    "miller_loop", "final_exponentiation")
+                    "miller_loop", "final_exponentiation", "hash_to_field_fp2")
 G2_RLC_KERNELS = G2_EXACT_KERNELS + ("sum_rows_g2", "scalar_mul_glv_mixed_g2")
 # the threshold paths, per signature group
 THRESHOLD_KERNELS = {
@@ -416,6 +431,24 @@ def need_ladder_var(bits, dbl, add):
     return dbls * dbl + adds * add
 
 
+# H1's word operations a lane (bound like K1's inversion: 32-bit word
+# operations at the multiply-add rate).  A SHA-256 compression at its
+# cheapest standard form -- a rotation one funnel shift, a three-input
+# logic function one LOP3, three-input adds -- takes 48 message-schedule
+# steps of 10 operations, 64 rounds of 14 and the 8 final adds.  A lane:
+# its digest's blocks (none for the DIGEST front; 1 for round8, 2 for
+# prev || round8), b_0's 2 blocks after the Z_pad midstate, 2 blocks for
+# each of the ell = 2 x chunks b_i and 8 XORs each, and per 64-byte chunk
+# two Montgomery products (R^2 and R^3) and an add mod p.
+SHA_OPS = 48 * 10 + 64 * 14 + 8
+
+
+def need_h1(chunks, digest_blocks):
+    ell = 2 * chunks
+    return ((digest_blocks + 2 + 2 * ell) * SHA_OPS + 8 * ell
+            + chunks * (2 * IMAD_MUL + 24))
+
+
 def ptxas_summary(log):
     """Per source file and entry kernel (mangled name): registers, stack
     bytes and spill bytes (from nvcc -Xptxas -v)."""
@@ -481,6 +514,8 @@ def main():
         from drand_tpu_torch.crypto.host import curve as HC
         from drand_tpu_torch.crypto.host import field as HF
         from drand_tpu_torch.crypto.host import serialize as HS
+        from drand_tpu_torch.crypto.host import h2c as H2C
+        from drand_tpu_torch.ops import sha256 as SHA
         from drand_tpu_torch.crypto.host.params import P, R, X
         E2 = (P * P - 9) // 16
     except ImportError as e:
@@ -597,9 +632,10 @@ def main():
     got, rlc_wall, rlc_launches, rlc_shapes, passes = drive(
         lambda: verifier.verify_batch(rounds, good_sigs))
     ok = bool(got.all()) and passes == {"rlc": 1, "exact": 0}
-    # a second run, split into the host packing and the device pass
+    # a second run, split into the host packing (the device front: numpy
+    # round words) and the device pass (H1 at its start)
     t0 = time.perf_counter()
-    rlc_enc, _ = verifier._encode(good_sigs, verifier._messages(rounds), pad)
+    rlc_enc3, _, rlc_front = verifier._pack_enc(rounds, good_sigs, None, pad)
     torch.cuda.synchronize()
     rlc_pack_s = time.perf_counter() - t0
     # the device pass three times (host clock, a sync each): its median and
@@ -607,25 +643,48 @@ def main():
     pass_runs, again = [], True
     for _ in range(3):
         t0 = time.perf_counter()
-        again &= bool(verifier._rlc_ok(rlc_enc, n))
+        again &= bool(verifier._rlc_ok(rlc_enc3, n, rlc_front))
         torch.cuda.synchronize()
         pass_runs.append(time.perf_counter() - t0)
     rlc_pass_s = float(np.median(pass_runs))
+    rlc_enc = verifier._fields_enc(rlc_enc3, rlc_front)
+    # the FIELDS front (host hash_to_field) on the same inputs: its packing
+    # beside the device front's, and its verdicts equal to the device
+    # front's
+    fields_v = B.BatchBeaconVerifier(sch, HS.g2_to_bytes(pk),
+                                     h2f_device=False)
+    t0 = time.perf_counter()
+    fields_v._pack_enc(rounds, good_sigs, None, pad)
+    torch.cuda.synchronize()
+    fields_pack_s = time.perf_counter() - t0
+    got_fields, _, fields_launches, _, fields_passes = drive(
+        lambda: fields_v.verify_batch(rounds, good_sigs))
+    same_fronts = bool((got_fields == got).all())
     emit({"phase": "verify_batch_rlc", "rounds": n,
           "all_valid": bool(got.all()), "passes": passes, "wall_s": rlc_wall,
-          "rounds_per_s": n / rlc_wall,
+          "rounds_per_s": n / rlc_wall, "front": rlc_front,
           "second_run": {"host_pack_s": rlc_pack_s,
                          "device_pass_s": rlc_pass_s,
                          "device_pass_runs_s": pass_runs,
                          "device_pass_spread_s": max(pass_runs)
                          - min(pass_runs),
                          "rounds_per_s": n / (rlc_pack_s + rlc_pass_s)},
+          "fields_front": {"host_pack_ms": fields_pack_s * 1e3,
+                           "device_front_host_pack_ms": rlc_pack_s * 1e3,
+                           "verdicts_equal_device_front": same_fronts,
+                           "passes": fields_passes,
+                           "h1_launches": fields_launches["hash_to_field"]},
           "sign_setup_s": sign_s, "launches": rlc_launches,
           "shapes": shape_list(rlc_shapes), "device": name,
           "nvidia_smi": smi_line})
     if not ok or not again:
         fail(f"all-valid verify_batch: verdicts all true {bool(got.all())}, "
              f"passes {passes} (want one RLC pass), second pass {again}")
+    if rlc_front != B.FRONT_RAW_UNCHAINED or not same_fronts \
+            or fields_launches["hash_to_field"]:
+        fail(f"the fronts of verify_batch at {n} rounds: device front "
+             f"{rlc_front}, FIELDS verdicts equal {same_fronts}, H1 "
+             f"launches on the FIELDS front {fields_launches}")
     if any(rlc_launches[k] == 0 for k in G1_RLC_KERNELS):
         fail(f"a kernel of the RLC path was not launched: {rlc_launches}")
 
@@ -670,11 +729,11 @@ def main():
 
     # -- phase 3c: the exact pass over the whole batch (slice 1's path) ------
     t0 = time.perf_counter()
-    enc, wire_bad = verifier._encode(sigs, verifier._messages(rounds), pad)
+    enc, wire_bad, ex_front = verifier._pack_enc(rounds, sigs, None, pad)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     again, exact_s, ex_launches, ex_shapes, ex_passes = drive(
-        lambda: verifier._exact(enc, n))
+        lambda: verifier._exact(enc, n, ex_front))
     ok = bool(((again & ~wire_bad) == expected).all())
     emit({"phase": "exact_pass", "rounds": n, "verdicts_match": ok,
           "host_pack_s": pack_s, "device_pass_s": exact_s,
@@ -685,7 +744,8 @@ def main():
         fail("the exact pass disagrees with the expected verdicts")
     if any(ex_launches[k] == 0 for k in ("pow_fixed", "scalar_mul_fixed",
                                          "miller_loop",
-                                         "final_exponentiation")):
+                                         "final_exponentiation",
+                                         "hash_to_field")):
         fail(f"a kernel of the exact pass was not launched: {ex_launches}")
 
     # -- phase 3d: the G2-signature schemes at full width ---------------------
@@ -694,7 +754,7 @@ def main():
     # k = sk each: usigs[i] = sk*H(sha256(round_i)), the unchained signature
     # of round i, then sigs[i] = sk*H(sha256(prev_i || round_i)) with
     # prev_i = usigs[i] -- a valid (round, sig, prev) triple of the chained
-    # scheme -- and, at slot 0, a 32-byte genesis seed as prev.  Linkage
+    # scheme -- and, at slot 0, no prev.  Linkage
     # (prev_i is the signature of round i - 1) is checked only on the host,
     # by verify_chain, which the CPU tests cover.
     chained = schemes.scheme_from_name(schemes.DEFAULT_SCHEME_ID)
@@ -719,7 +779,10 @@ def main():
 
     t0 = time.perf_counter()
     usigs = sign_g2([unchained.digest_beacon(r) for r in rounds])
-    cprevs = [genesis] + usigs[1:]
+    # slot 0, the first round of the chain, has no previous signature (a
+    # has_prev = 0 lane of the raw chained front); with the 32-byte
+    # genesis seed there the chunk takes the DIGEST front (phase h2f_front)
+    cprevs = [None] + usigs[1:]
     csigs = sign_g2([chained.digest_beacon(r, p)
                      for r, p in zip(rounds, cprevs)])
     torch.cuda.synchronize()
@@ -737,16 +800,17 @@ def main():
         lambda: g2v.verify_batch(rounds, csigs, cprevs))
     ok = bool(got.all()) and passes == {"rlc": 1, "exact": 0}
     t0 = time.perf_counter()
-    g2_enc, _ = g2v._encode(csigs, g2v._messages(rounds, cprevs), pad)
+    g2_enc3, _, g2_front = g2v._pack_enc(rounds, csigs, cprevs, pad)
     torch.cuda.synchronize()
     g2_pack_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    again = g2v._rlc_ok(g2_enc, n)
+    again = g2v._rlc_ok(g2_enc3, n, g2_front)
     torch.cuda.synchronize()
     g2_pass_s = time.perf_counter() - t0
+    g2_enc = g2v._fields_enc(g2_enc3, g2_front)
     emit({"phase": "g2_verify_batch_rlc", "scheme": chained.id, "rounds": n,
           "all_valid": bool(got.all()), "passes": passes, "wall_s": g2_wall,
-          "rounds_per_s": n / g2_wall,
+          "rounds_per_s": n / g2_wall, "front": g2_front,
           "second_run": {"host_pack_s": g2_pack_s,
                          "device_pass_s": g2_pass_s,
                          "rounds_per_s": n / (g2_pack_s + g2_pass_s)},
@@ -760,15 +824,17 @@ def main():
     if any(g2_launches[k] == 0 for k in G2_RLC_KERNELS):
         fail(f"a kernel of the G2 RLC path was not launched: {g2_launches}")
 
-    got, u_wall, u_launches, _, passes = drive(
+    got, u_wall, u_launches, u_shapes, passes = drive(
         lambda: g2u.verify_batch(rounds, usigs))
     emit({"phase": "g2_unchained_rlc", "scheme": unchained.id, "rounds": n,
           "all_valid": bool(got.all()), "passes": passes, "wall_s": u_wall,
           "rounds_per_s": n / u_wall, "launches": u_launches,
           "device": name, "nvidia_smi": smi_line})
-    if not got.all() or passes != {"rlc": 1, "exact": 0}:
+    if not got.all() or passes != {"rlc": 1, "exact": 0} \
+            or u_launches["hash_to_field_fp2"] != 1:
         fail(f"all-valid unchained verify_batch: verdicts all true "
-             f"{bool(got.all())}, passes {passes} (want one RLC pass)")
+             f"{bool(got.all())}, passes {passes} (want one RLC pass), "
+             f"launches {u_launches}")
 
     g2_expected = np.ones(n, dtype=bool)
     g2_bad = {}
@@ -817,11 +883,11 @@ def main():
              f"at {wrong}")
 
     t0 = time.perf_counter()
-    g2x_enc, g2x_bad = g2v._encode(bsigs, g2v._messages(rounds, cprevs), pad)
+    g2x_enc, g2x_bad, g2x_front = g2v._pack_enc(rounds, bsigs, cprevs, pad)
     torch.cuda.synchronize()
     g2x_pack_s = time.perf_counter() - t0
     again, g2x_s, g2x_launches, g2x_shapes, _ = drive(
-        lambda: g2v._exact(g2x_enc, n))
+        lambda: g2v._exact(g2x_enc, n, g2x_front))
     ok = bool(((again & ~g2x_bad) == g2_expected).all())
     emit({"phase": "g2_exact_pass", "scheme": chained.id, "rounds": n,
           "verdicts_match": ok, "host_pack_s": g2x_pack_s,
@@ -1392,10 +1458,17 @@ def main():
          ("k_ladder_var_g1",), []),
         ("scalar_mul_bits_g2", "ladder_var.cu", 595, "K6 G2",
          ("k_ladder_var_g2",), []),
+        # H1 has no Pallas counterpart: it replaces the JAX package's XLA
+        # SHA-256 scan and the xmd / hash_to_field stages around it
+        ("hash_to_field", "h2f.cu", "drand_tpu/ops/sha256.py:109", "H1 Fp",
+         ("k_h2f",), []),
+        ("hash_to_field_fp2", "h2f.cu", "drand_tpu/ops/sha256.py:109",
+         "H1 Fp2", ("k_h2f",), []),
     ]
     ran = {"verify_batch_rlc": (rlc_launches, rlc_shapes),
            "exact_pass": (ex_launches, ex_shapes),
            "g2_verify_batch_rlc": (g2_launches, g2_shapes),
+           "g2_unchained_rlc": (u_launches, u_shapes),
            "g2_exact_pass": (g2x_launches, g2x_shapes)}
     for tag in ("g1", "g2"):
         ran.update(thr[tag]["paths"])
@@ -1450,6 +1523,63 @@ def main():
         return (curve.select(negm, curve.neg(pts), pts),
                 torch.from_numpy(bits.reshape(nbits, lanes)).to(dev))
 
+    # H1's inputs at a shape: the paths' own messages (rounds 1..lanes;
+    # chained, the unchained signatures as previous signatures with every
+    # 1000th lane and lane 0 absent, has_prev = 0; the DIGEST front the
+    # round digests), with the host messages for the oracle
+    h1_cases = {}
+
+    def h1_case(kname, kind, lanes, genesis_seed=False):
+        fp2 = kname.endswith("_fp2")
+        sch_h = chained if fp2 else sch
+        rnd = list(range(1, lanes + 1))
+        rw = torch.from_numpy(B.BatchBeaconVerifier._round_words(
+            rnd, lanes)).to(dev)
+        digests = 0.0
+        if kind == "raw_unchained":
+            msg = (rw,)
+            msgs = [sch_h.digest_beacon(r) if not sch_h.chained
+                    else unchained.digest_beacon(r) for r in rnd]
+            digests = 1.0
+        elif kind == "raw_chained":
+            prv = [None if i % 1000 == 0 else usigs[i % n]
+                   for i in range(lanes)]
+            plen = len(usigs[0])
+            pw = SHA.pack_msgs_to_words([p or b"\x00" * plen for p in prv])
+            has = torch.tensor([int(p is not None) for p in prv],
+                               device=dev)
+            msg = (torch.from_numpy(pw).to(dev), rw, has)
+            msgs = [chained.digest_beacon(r, p) for r, p in zip(rnd, prv)]
+            digests = 1.0 + float(has.float().mean())
+        else:
+            if genesis_seed:      # a chained chunk with a 32-byte seed prev
+                prv = [genesis] + usigs[1:lanes]
+                msgs = [chained.digest_beacon(r, p) for r, p in zip(rnd, prv)]
+            else:
+                msgs = [sch_h.digest_beacon(r) for r in rnd]
+            msg = (torch.from_numpy(SHA.pack_msgs_to_words(msgs, 32))
+                   .to(dev),)
+        words = sum(t.shape[-1] if t.dim() > 1 else 1 for t in msg) * 8 \
+            / WORD_BYTES + (4 if fp2 else 2) * K1_LIMB_BYTES / WORD_BYTES
+        return {"fp2": fp2, "dst": sch_h.dst, "msg": msg, "msgs": msgs,
+                "digest_blocks": digests, "words": words}
+
+    def h1_shape(kname, kind, lanes, label=None, genesis_seed=False):
+        """An H1 shape: need and code from need_h1 (this run's has_prev
+        lanes); the inputs kept for phase h2f_front's host oracle."""
+        c = h1_case(kname, kind, lanes, genesis_seed)
+        count = 4 if c["fp2"] else 2
+        label = label or f"{kind} at {lanes}"
+        h1_cases[(kname, label)] = (c, kind)
+        ops = need_h1(count, c["digest_blocks"])
+        return (label, kind, lanes,
+                lambda: K.hash_to_field(kind, c["msg"], c["dst"], count),
+                lambda: K.hash_to_field_plain(kind, c["msg"], c["dst"],
+                                              count),
+                lambda a, b: err(a, b), (ops, ops), c["words"],
+                {"entry": "k_h2f", "compressions_per_lane":
+                 c["digest_blocks"] + 2 + 4 * count})
+
     def generic_shape(kname, key, lanes):
         """(label, key, lanes, kernel call, plain call, compare, (need,
         code) multiply-adds per lane, words per lane) at a recorded shape."""
@@ -1494,6 +1624,8 @@ def main():
             return k8_shape(label, (*tabs, b0, b1))
         if kname.startswith("scalar_mul_bits"):
             return k6_shape(g2k, key, lanes)
+        if kname.startswith("hash_to_field"):
+            return h1_shape(kname, key, lanes)
         fail(f"no inputs for {kname} at {key}, {lanes} lanes")
 
     def k6_shape(g2, nbits, lanes, label=None):
@@ -1528,6 +1660,66 @@ def main():
             if kname not in by_name:
                 fail(f"a launch of {kname}, a kernel the table does not hold")
             by_name[kname].append(generic_shape(kname, key, lanes))
+    # the DIGEST front of a chained chunk whose first previous signature is
+    # a 32-byte genesis seed, at N (a check: the paths take the raw front)
+    by_name["hash_to_field_fp2"].append(h1_shape(
+        "hash_to_field_fp2", "msg", pad,
+        "digest at N, genesis-seed chunk (check)", genesis_seed=True))
+
+    # -- phase h2f_front: H1 at every shape the paths launched, against its
+    # plain version (limbs) and the host oracle (hashlib + host
+    # hash_to_field, canonical integers); SHA-256 and xmd entries beside
+    front_checks = []
+    for kname in ("hash_to_field", "hash_to_field_fp2"):
+        for label, kind, lanes, kfn, pfn, *_ in by_name[kname]:
+            c, _ = h1_cases[(kname, label)]
+            got = kfn()
+            torch.cuda.synchronize()
+            e = err(got, pfn())
+            ints = [L.decode_mont(u) for u in got]
+            if c["fp2"]:
+                host = [[x for u in H2C.hash_to_field_fp2(m, c["dst"], 2)
+                         for x in u] for m in c["msgs"]]
+            else:
+                host = [H2C.hash_to_field_fp(m, c["dst"], 2)
+                        for m in c["msgs"]]
+            bad_lanes = [i for i, h in enumerate(host)
+                         if [col[i] for col in ints] != list(h)]
+            front_checks.append({"kernel": kname, "shape": label,
+                                 "lanes": lanes, "max_abs_err_vs_plain": e,
+                                 "lanes_unequal_to_host": len(bad_lanes),
+                                 "launches_on_paths": sum(
+                                     sh.get((kname, kind, lanes), 0)
+                                     for _, sh in ran.values())})
+    chain_msgs = [chained.digest_beacon(r, p) for r, p in
+                  zip(rounds, [None] + usigs[1:])]
+    sha_in = torch.from_numpy(SHA.pack_msgs_to_words(
+        [p + r.to_bytes(8, "big") for r, p in zip(rounds[1:], usigs[1:])]
+    )).to(dev)
+    sha_got = K.sha256_words(sha_in)
+    sha_ok = SHA.digest_bytes(sha_got) == chain_msgs[1:] and \
+        torch.equal(sha_got, SHA.sha256_words(sha_in))
+    dw = torch.from_numpy(SHA.pack_msgs_to_words(chain_msgs, 32)).to(dev)
+    xmd_got = K.expand_msg_xmd(dw, 32, chained.dst, 256)
+    xmd_ok = torch.equal(xmd_got, K.expand_msg_xmd_plain(
+        dw, 32, chained.dst, 256)) and all(
+            row.astype(">u4").tobytes() == H2C.expand_message_xmd(
+                m, chained.dst, 256)
+            for row, m in zip(xmd_got.cpu().numpy(), chain_msgs))
+    emit({"phase": "h2f_front", "tolerance": "exact: H1 limbs equal the "
+          "plain version's, canonical integers the host hash_to_field's",
+          "shapes": front_checks,
+          "sha256_words_104B_at_N_equal_hashlib_and_plain": sha_ok,
+          "expand_msg_xmd_256B_at_N_equal_host_and_plain": xmd_ok,
+          "device": name, "nvidia_smi": smi_line})
+    if not sha_ok or not xmd_ok or any(
+            c["max_abs_err_vs_plain"] or c["lanes_unequal_to_host"]
+            for c in front_checks):
+        fail(f"H1 disagrees: {front_checks}, sha256 {sha_ok}, xmd {xmd_ok}")
+    if not any(c["launches_on_paths"] for c in front_checks
+               if c["shape"].startswith("raw_chained")):
+        fail("no path launched H1 on the raw chained front")
+
     table, checks, path_ms = [], {}, {p: 0.0 for p in ran}
     for kname, src, line, tpu, needles, shapes in specs:
         ms = pms = ops_ms = bytes_ms = code_ms = 0.0
@@ -1582,7 +1774,8 @@ def main():
         table.append({
             "name": kname, "tpu_kernel": tpu, "route": "cuda",
             "source": f"drand_tpu_torch/ops/csrc/{src}",
-            "replaces": f"drand_tpu/ops/pallas_field.py:{line}",
+            "replaces": line if isinstance(line, str)
+            else f"drand_tpu/ops/pallas_field.py:{line}",
             "launches": launched, "max_abs_err": max_err,
             "ms": ms, "plain_ms": pms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1610,6 +1803,8 @@ def main():
         return out, (time.perf_counter() - t0) * 1e3
 
     stages = {}
+    _, stages["h1_hash_to_field"] = wall_ms(
+        lambda: verifier._fields_enc(rlc_enc3, rlc_front))
     (sj, _, hm), stages["decompress_and_hash"] = wall_ms(
         lambda: DH.g1_decompress_and_hash(*rlc_enc))
     _, stages["subgroup_check"] = wall_ms(lambda: DC.g1_in_subgroup(sj))
@@ -1638,6 +1833,8 @@ def main():
 
     # the G2 RLC pass stage by stage
     st2 = {}
+    _, st2["h1_hash_to_field"] = wall_ms(
+        lambda: g2v._fields_enc(g2_enc3, g2_front))
     sx0, sgn, gu0, gu1 = g2_enc
     (sj2, _, hm2), st2["decompress_and_hash"] = wall_ms(
         lambda: DH.g2_decompress_and_hash(sx0[0], sx0[1], sgn, gu0, gu1))

@@ -1,8 +1,9 @@
 """Batched beacon verification of all three drand schemes, batched signing
 and batched threshold recovery.
 
-Counterpart of drand_tpu/crypto/batch.py on the FIELDS front (host
-hash-to-field).  The N verification equations
+Counterpart of drand_tpu/crypto/batch.py, with its four message fronts
+(host hash-to-field, or the device hash front H1).  The N verification
+equations
 
     e(S_i, -g2) * e(H(m_i), pk) == 1     bls-unchained-on-g1 (sigs on G1)
     e(-g1, S_i) * e(pk, H(m_i)) == 1     pedersen-bls-chained / -unchained
@@ -34,11 +35,18 @@ times at one lane (the Fp2 inverses of the batch inversion and of the two
 to_affine), K3 once and K4 once; the exact pass K5 once, K2-G2 three times,
 K1 twice at N (two to_affine), K3 once (2N pairs) and K4 once (N lanes).
 
-Host/device split: the host parses wire signatures with numpy and hashes
-messages to field elements (hashlib); every curve and pairing operation
-runs on the device, and so do the RLC randomizers.  Malformed and padding
-slots carry the generator encoding: zero RLC coefficient, exact result
-discarded, verdict from the host's bad mask.
+Host/device split: the host parses wire signatures with numpy; every
+curve and pairing operation runs on the device, and so do the RLC
+randomizers.  Malformed and padding slots carry the generator encoding:
+zero RLC coefficient, exact result discarded, verdict from the host's bad
+mask.  The messages take one of four fronts (FRONT_*), fixed per pad width
+(``h2f_device_default``, or the ``h2f_device=`` pin): above the threshold
+the host packs raw message words with numpy (the rounds, and the previous
+signatures on a chained scheme) or, for an irregular chained chunk, host
+digests, and the digest, expand_message_xmd and hash_to_field run on the
+device in one H1 launch at the start of the dispatch stage; below it the
+host hashes to the field (hashlib, the FIELDS front).  Either way the
+passes and bisection see field elements, so nothing is hashed twice.
 
 ``sign_batch`` signs many messages with one secret: hash-to-curve, one K6
 ladder at 256 bits, to_affine.  ``recover_batch`` interpolates t verified
@@ -48,6 +56,7 @@ phi (G1, 130 bits) or psi (G2, 66 bits) lanes of all partials, a sum per
 round.
 """
 
+import os
 import secrets
 import threading
 import time
@@ -69,6 +78,7 @@ from ..ops import h2c as DH
 from ..ops import kernels as K
 from ..ops import limbs as L
 from ..ops import pairing as DP
+from ..ops import sha256 as SHA
 
 SECURITY_BITS = 128      # RLC randomizer width
 _MIN_BATCH = 8
@@ -94,6 +104,37 @@ _mont = lambda x: x * L.R_MONT % P
 _GEN_JAC_G1 = (_mont(G1_GEN[0]), _mont(G1_GEN[1]), L.R_MONT)
 _GEN_JAC_G2 = ((_mont(G2_GEN[0][0]), _mont(G2_GEN[0][1])),
                (_mont(G2_GEN[1][0]), _mont(G2_GEN[1][1])), (L.R_MONT, 0))
+
+# Message fronts of the verify passes.  The device fronts ship message words
+# and hash on the device (H1): "raw_unchained" the rounds, "raw_chained"
+# the previous signatures and the rounds, "digest" host-computed 32-byte
+# digests (an irregular chained chunk -- a genesis seed's previous_sig is
+# not signature-width -- and the partials' round digests).  "fields" is
+# the host hash_to_field, the oracle and the below-threshold front.
+FRONT_FIELDS = "fields"
+FRONT_DIGEST = "digest"
+FRONT_RAW_UNCHAINED = "raw_unchained"
+FRONT_RAW_CHAINED = "raw_chained"
+
+
+def h2f_device_min_n() -> int:
+    """Batch width at or above which packing ships message words and
+    hash-to-field runs on the device (DRAND_H2F_DEVICE_MIN_N, default
+    64)."""
+    return int(os.environ.get("DRAND_H2F_DEVICE_MIN_N", "64"))
+
+
+def h2f_device_default(width: int) -> bool:
+    """Front selection for a `width`-lane batch: DRAND_H2F_DEVICE=0 forces
+    the host front, =1 the device front, anything else compares the width
+    with h2f_device_min_n().  Deterministic per width."""
+    mode = os.environ.get("DRAND_H2F_DEVICE", "auto")
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    return width >= h2f_device_min_n()
+
 
 # Host pack wall time (pack_chunk) and device passes, process-wide.
 _PACK_SECONDS = {"t": 0.0}
@@ -206,7 +247,8 @@ def _pad_len(n: int) -> int:
 
 
 def hash_msgs_to_field_g1(msgs, dst, device):
-    """Host hash_to_field (count 2) -> (u0, u1) Montgomery limb tensors."""
+    """Host hash_to_field (count 2) -> (u0, u1) Montgomery limb tensors:
+    the FIELDS front, the oracle of the device fronts."""
     u0s, u1s = [], []
     for m in msgs:
         u0, u1 = H2C.hash_to_field_fp(m, dst, 2)
@@ -432,7 +474,9 @@ class BatchBeaconVerifier:
 
     Runs on the CUDA device unless ``device="cpu"`` is passed; the kernels
     run only on CUDA tensors, the CPU runs their plain versions.  pad_to:
-    an optional canonical batch width every batch pads up to."""
+    an optional canonical batch width every batch pads up to.  h2f_device:
+    None picks the message front per pad width (h2f_device_default);
+    True / False pin the device or the host front."""
 
     kind = "device"        # metrics label, as the JAX verifier's
 
@@ -441,10 +485,11 @@ class BatchBeaconVerifier:
     _BISECT_MIN = 64
 
     def __init__(self, scheme: Scheme, public_key_bytes: bytes,
-                 pad_to=None, device=None):
+                 pad_to=None, device=None, h2f_device=None):
         self.scheme = scheme
         self.g2sig = scheme.sig_group is GroupG2
         self.pad_to = pad_to
+        self.h2f_device = h2f_device
         self.device = resolve_device(device)
         self.pub_point = scheme.key_group.from_bytes(public_key_bytes)
         if self.pub_point is None:
@@ -462,8 +507,9 @@ class BatchBeaconVerifier:
     # -- host-side packing ---------------------------------------------------
 
     def _messages(self, rounds, prev_sigs=None):
-        """The digest of each round: SHA-256 of prev_sig || round on a
-        chained scheme, of the round otherwise."""
+        """The digest of each round on the host: SHA-256 of prev_sig ||
+        round on a chained scheme, of the round otherwise (the FIELDS and
+        DIGEST fronts; the raw fronts digest on the device)."""
         if not self.scheme.chained or prev_sigs is None:
             prev_sigs = [None] * len(rounds)
         return [self.scheme.digest_beacon(int(r), p)
@@ -499,6 +545,80 @@ class BatchBeaconVerifier:
         u0, u1 = h2f(pmsgs, self.scheme.dst, self.device)
         return (sig_x, sign, u0, u1), bad
 
+    @staticmethod
+    def _round_words(rounds, pad) -> np.ndarray:
+        """(pad, 2) int64 BE words of the 8-byte big-endian rounds."""
+        r = np.zeros(pad, np.uint64)
+        r[:len(rounds)] = np.asarray([int(x) for x in rounds], np.uint64)
+        return np.stack([(r >> np.uint64(32)).astype(np.int64),
+                         (r & np.uint64(0xFFFFFFFF)).astype(np.int64)], 1)
+
+    def _msg_front(self, rounds, prev_sigs, pad):
+        """The device front's message, packed with numpy and copied to the
+        device, no hashing: the round words (and, chained, the previous
+        signatures' words with a has_prev flag, 0 where it is absent) for a
+        uniform chunk, else host digests as words (the DIGEST front: an
+        irregular chained chunk, e.g. a 32-byte genesis seed as
+        previous_sig).  Returns (front, msg)."""
+        to = lambda a: torch.from_numpy(a).to(self.device)
+        rw = self._round_words(rounds, pad)
+        if not self.scheme.chained:
+            return FRONT_RAW_UNCHAINED, (to(rw),)
+        if prev_sigs is None:
+            prev_sigs = [None] * len(rounds)
+        plen = self.scheme.sig_group.point_len
+        if {len(p) for p in prev_sigs if p} <= {plen}:
+            prev = np.zeros((pad, plen), np.uint8)
+            has = np.zeros(pad, np.int64)
+            idx = [i for i, p in enumerate(prev_sigs) if p]
+            if idx:
+                flat = np.frombuffer(
+                    b"".join(bytes(prev_sigs[i]) for i in idx), np.uint8)
+                prev[idx] = flat.reshape(len(idx), plen)
+                has[idx] = 1
+            pw = prev.reshape(pad, plen // 4, 4).view(">u4") \
+                .reshape(pad, plen // 4).astype(np.int64)
+            return FRONT_RAW_CHAINED, (to(pw), to(rw), to(has))
+        msgs = _pad_msgs(self._messages(rounds, prev_sigs), pad)
+        return FRONT_DIGEST, (to(SHA.pack_msgs_to_words(msgs, 32)),)
+
+    def _pack_enc(self, rounds, sigs, prev_sigs, pad):
+        """Front-aware packing -> ((sig_x, sign, msg), bad, front).  The
+        front follows the pad width (h2f_device_default) unless the
+        constructor pinned it; FIELDS hashes to the field on the host, the
+        others ship message words (no host hashing)."""
+        use_dev = self.h2f_device if self.h2f_device is not None \
+            else h2f_device_default(pad)
+        if use_dev:
+            sig_x, sign, bad = self._encode_sigs(sigs, pad)
+            front, msg = self._msg_front(rounds, prev_sigs, pad)
+            return (sig_x, sign, msg), bad, front
+        (sig_x, sign, u0, u1), bad = self._encode(
+            sigs, self._messages(rounds, prev_sigs), pad)
+        return (sig_x, sign, (u0, u1)), bad, FRONT_FIELDS
+
+    @staticmethod
+    def _norm_enc(enc, front=None):
+        """Both encoding spellings -> ((sig_x, sign, msg), front): the
+        legacy 4-tuple (sig_x, sign, u0, u1) of _encode (the FIELDS front)
+        and the front-aware 3-tuple of _pack_enc."""
+        if len(enc) == 4:
+            sig_x, sign, u0, u1 = enc
+            return (sig_x, sign, (u0, u1)), FRONT_FIELDS
+        return enc, (front or FRONT_FIELDS)
+
+    def _fields_enc(self, enc, front=None):
+        """Any encoding -> the passes' (sig_x, sign, u0, u1): a device
+        front's message goes through H1 (digest, expand_message_xmd,
+        hash_to_field in one launch); FIELDS passes through."""
+        (sig_x, sign, msg), front = self._norm_enc(enc, front)
+        if front == FRONT_FIELDS:
+            u0, u1 = msg
+        else:
+            u0, u1 = DH.hash_to_field_front(front, msg, self.scheme.dst,
+                                            self.g2sig)
+        return sig_x, sign, u0, u1
+
     # -- verification ---------------------------------------------------------
 
     def _slice_enc(self, enc, lo, hi):
@@ -517,22 +637,24 @@ class BatchBeaconVerifier:
 
         return DC._tmap(cut, enc)
 
-    def _rlc_dispatch(self, enc, n):
+    def _rlc_dispatch(self, enc, n, front=None):
         """One RLC pass with fresh device randomizers; returns the verdict
         as a device scalar."""
         run = _rlc_run_g2sig if self.g2sig else _rlc_run_g1sig
+        enc = self._fields_enc(enc, front)
         _count_dispatch("rlc")
         _, all_ok = run(*enc, n, self.pk_aff, self.fixed_aff)
         return all_ok
 
-    def _rlc_ok(self, enc, n) -> bool:
+    def _rlc_ok(self, enc, n, front=None) -> bool:
         """One RLC check over an encoded range: True iff all n rounds
         verify."""
-        return bool(self._rlc_dispatch(enc, n))
+        return bool(self._rlc_dispatch(enc, n, front))
 
-    def _exact(self, enc, n) -> np.ndarray:
+    def _exact(self, enc, n, front=None) -> np.ndarray:
         """Per-round exact pairing checks over an encoded batch."""
         run = _exact_run_g2sig if self.g2sig else _exact_run_g1sig
+        enc = self._fields_enc(enc, front)
         _count_dispatch("exact")
         ok = run(*enc, self.pk_aff, self.fixed_aff)
         return ok.cpu().numpy()[:n]
@@ -557,47 +679,57 @@ class BatchBeaconVerifier:
         One RLC check over the whole batch; on failure RLC bisection
         narrows to the bad region and exact per-round checks locate the
         invalid rounds.  The batch is encoded once; bisection works on
-        slices of that encoding.  prev_sigs: each round's previous
+        slices of that encoding (field elements: a device front hashes
+        once, before the first pass).  prev_sigs: each round's previous
         signature, read by a chained scheme's digest only (a falsy one,
         as at the genesis slot, hashes the round alone)."""
         n = len(rounds)
         if n == 0:
             return np.zeros(0, dtype=bool)
-        enc, bad = self._encode(sigs, self._messages(rounds, prev_sigs),
-                                self._pad_for(n))
-        return self._verify_range(enc, 0, n, bad, top=True)
+        enc, bad, front = self._pack_enc(rounds, sigs, prev_sigs,
+                                         self._pad_for(n))
+        return self._verify_range(self._fields_enc(enc, front), 0, n, bad,
+                                  top=True)
 
     # -- pack / dispatch / resolve -------------------------------------------
 
     def pack_chunk(self, rounds, sigs, prev_sigs=None):
-        """Stage 1, host side: wire parse, host hash-to-field and the copy
-        to the device.  Returns an opaque packed list for dispatch/resolve;
-        the wall time accumulates into pack_seconds()."""
+        """Stage 1, host side: wire parse, the message front's packing
+        (numpy message words above the threshold, no hashing and no
+        kernel launch; the host hash-to-field below it) and the copy to
+        the device.  Returns an opaque packed list [n, enc, bad, front]
+        for dispatch/resolve; the wall time accumulates into
+        pack_seconds()."""
         t0 = time.perf_counter()
         n = len(rounds)
-        enc, bad = self._encode(sigs, self._messages(rounds, prev_sigs),
-                                self._pad_for(n))
+        enc, bad, front = self._pack_enc(rounds, sigs, prev_sigs,
+                                         self._pad_for(n))
         with _LOCK:
             _PACK_SECONDS["t"] += time.perf_counter() - t0
-        return [n, enc, bad]
+        return [n, enc, bad, front]
 
     def dispatch_packed(self, packed):
-        """Stage 2: one RLC pass; returns its verdict as a device scalar, or
-        None when malformed slots force the bisection path.  (The JAX
-        package donates the encoding to the device program here; PyTorch
-        has no buffer donation, so the chunk's tensors stay alive until
+        """Stage 2: a device front's hash (H1) into field elements, kept in
+        the packed list so resolve and bisection never hash again, then one
+        RLC pass; returns its verdict as a device scalar, or None when
+        malformed slots force the bisection path.  (The JAX package
+        donates the encoding to the device program here; PyTorch has no
+        buffer donation, so the chunk's tensors stay alive until
         resolve_packed drops the packed list.)"""
-        n, enc, bad = packed
+        n, enc, bad, front = packed
+        packed[1] = enc = self._fields_enc(enc, front)
+        packed[3] = FRONT_FIELDS
         if bad.any():
             return None
         return self._rlc_dispatch(enc, n)
 
     def resolve_packed(self, packed, verdict) -> np.ndarray:
         """Stage 3: read the verdict; bisect to the culprits on failure."""
-        n, enc, bad = packed
+        n, enc, bad, front = packed
         if verdict is not None and bool(verdict):
             return np.ones(n, dtype=bool)
-        return self._verify_range(enc, 0, n, bad, top=True)
+        return self._verify_range(self._fields_enc(enc, front), 0, n, bad,
+                                  top=True)
 
     def pipeline_depth(self, depth=None, chunk_size: int = 8192) -> int:
         """The requested depth (default DEFAULT_PIPELINE_DEPTH) clamped so

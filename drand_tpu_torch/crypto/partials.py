@@ -1,8 +1,10 @@
 """Batched threshold-partial verification.
 
-Counterpart of drand_tpu/crypto/partials.py on the FIELDS front (host
-hash-to-field).  A node checks each incoming partial with two pairings
-(drand ``tbls.VerifyPartial``, chain/beacon/node.go:150); here a whole
+Counterpart of drand_tpu/crypto/partials.py, with its DIGEST front (the
+round digests expanded to the field on the device, H1) at or above the
+threshold and its FIELDS front (host hash-to-field) below it.  A node
+checks each incoming partial with two pairings (drand
+``tbls.VerifyPartial``, chain/beacon/node.go:150); here a whole
 (rounds x slots) block collapses into ONE Miller product by a per-slot
 random linear combination:
 
@@ -25,10 +27,11 @@ rides the same K1 (G1) or K5 (G2) scan as both hash maps, on the device.
 import numpy as np
 import torch
 
-from .batch import (_NEG_G1, _NEG_G2, _GEN_JAC_G1, _GEN_JAC_G2,
-                    _GEN_SIGN_G1, _GEN_SIGN_G2, _GEN_X_G1, _GEN_X_G2,
-                    _count_dispatch, _device_rlc_bits, _gen_sub, _pair_g2,
-                    _rlc_keys, _wire_parse, hash_msgs_to_field_g1,
+from .batch import (FRONT_DIGEST, FRONT_FIELDS, _NEG_G1, _NEG_G2,
+                    _GEN_JAC_G1, _GEN_JAC_G2, _GEN_SIGN_G1, _GEN_SIGN_G2,
+                    _GEN_X_G1, _GEN_X_G2, _count_dispatch, _device_rlc_bits,
+                    _gen_sub, _pair_g2, _rlc_keys, _wire_parse,
+                    h2f_device_default, hash_msgs_to_field_g1,
                     hash_msgs_to_field_g2, resolve_device)
 from .host import tbls as HT
 from .schemes import Scheme, GroupG2
@@ -37,6 +40,7 @@ from ..ops import h2c as DH
 from ..ops import kernels as K
 from ..ops import limbs as L
 from ..ops import pairing as DP
+from ..ops import sha256 as SHA
 
 _cat = DC._cat_lanes
 
@@ -232,14 +236,28 @@ class BatchPartialVerifier:
         return (DC._tmap(lambda t: t[ix], self.pk_x),
                 DC._tmap(lambda t: t[ix], self.pk_y))
 
+    def _msg_enc(self, msgs):
+        """(front, msg) for the round digests: at or above the threshold,
+        with every digest 32 bytes, the DIGEST front (the digests as
+        words; H1 expands them on the device); otherwise the FIELDS
+        front, the host hash_to_field oracle, msg = (u0, u1)."""
+        if h2f_device_default(len(msgs)) and all(len(m) == 32
+                                                 for m in msgs):
+            words = SHA.pack_msgs_to_words(msgs, 32)
+            return FRONT_DIGEST, (torch.from_numpy(words).to(self.device),)
+        h2f = hash_msgs_to_field_g2 if self.g2sig else hash_msgs_to_field_g1
+        return FRONT_FIELDS, h2f(msgs, self.scheme.dst, self.device)
+
     def _encode(self, msgs, partial_rows, k):
-        """Host packing: parse the slots, hash the round digests to the
-        field.  Returns ((sig_x, sign, u0, u1), slot indices, valid)."""
+        """Packing: parse the slots, hash the round digests to the field
+        (_msg_enc's front: H1 on the device, or the host).  Returns
+        ((sig_x, sign, u0, u1), slot indices, valid)."""
         xw, sign, idxs, valid = self._parse(partial_rows, k)
         x = torch.from_numpy(xw).to(self.device)
         sig_x = (x[:, 0], x[:, 1]) if self.g2sig else x
-        h2f = hash_msgs_to_field_g2 if self.g2sig else hash_msgs_to_field_g1
-        u0, u1 = h2f(msgs, self.scheme.dst, self.device)
+        front, msg = self._msg_enc(msgs)
+        u0, u1 = msg if front == FRONT_FIELDS else DH.hash_to_field_front(
+            front, msg, self.scheme.dst, self.g2sig)
         return ((sig_x, torch.from_numpy(sign).to(self.device), u0, u1),
                 idxs, valid)
 

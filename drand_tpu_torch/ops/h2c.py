@@ -1,8 +1,12 @@
 """RFC 9380 hash-to-G1/G2 and signature decompression on tensors.
 
-Counterpart of drand_tpu/ops/h2c.py.  The host hashes (expand_message_xmd,
-hash_to_field: crypto/host/h2c.py); everything algebraic runs batched on
-tensors:
+Counterpart of drand_tpu/ops/h2c.py.  The message front -- the beacon
+digest, expand_message_xmd and hash_to_field -- runs on tensors
+(``expand_msg_xmd_dev``, ``hash_to_field_fp_dev`` / ``_fp2_dev``,
+``beacon_digests_dev``, ``hash_to_field_front``: one launch of kernel H1
+on a CUDA tensor, the plain version on a CPU tensor), or on the host
+(crypto/host/h2c.py, the FIELDS front of crypto/batch.py).  Everything
+algebraic runs batched on tensors:
 
 * simplified SWU, straight-line and projective (x = xn/xd), so the maps
   contain no inversion: over Fp ONE (p-3)/4 power (q = 3 mod 4) yields
@@ -18,7 +22,9 @@ tensors:
 
 import torch
 
+from . import kernels as K
 from . import limbs as L
+from . import sha256 as SHA
 from . import tower as T
 from .curve import (G1, G2, g1_clear_cofactor, g2_clear_cofactor,
                     _cat_lanes, _tmap)
@@ -340,3 +346,57 @@ def g2_decompress_and_hash(sig_x0, sig_x1, sign_bit, u0, u1):
     sig_jac, ok = _g2_recover_post(xm, y2, e_d, sign_bit)
     q0, q1 = _halves(q, u0[0].shape[0])
     return sig_jac, ok, g2_clear_cofactor(G2.add(q0, q1))
+
+
+# ---------------------------------------------------------------------------
+# The message front on tensors: RFC 9380 expand_message_xmd + hash_to_field
+# (count 2, L = 64) over message words (ops/sha256.py layout); all framing
+# (Z_pad, l_i_b, DST', padding) is static, the per-lane data the message
+# words alone.  Kernel H1 on a CUDA tensor, the plain version on a CPU one.
+# ---------------------------------------------------------------------------
+
+def expand_msg_xmd_dev(msg_words, msg_len: int, dst: bytes,
+                       len_in_bytes: int):
+    """(..., k) int64 BE message words of msg_len bytes a lane (a partial
+    final word high-packed) -> (..., len_in_bytes / 4) uniform words.
+    b_0 starts from the Z_pad midstate; b_1 .. b_ell are the RFC's chain
+    of 2-block hashes."""
+    return K.expand_msg_xmd(msg_words, msg_len, dst, len_in_bytes)
+
+
+def hash_to_field_fp_dev(msg_words, msg_len: int, dst: bytes):
+    """hash_to_field (count 2) into Fp: message words -> (u0, u1)
+    canonical Montgomery limbs, equal to the host ``hash_to_field_fp``
+    (OS2IP of each 64-byte chunk mod p)."""
+    return tuple(K.hash_to_field("msg", (msg_words,), dst, 2, msg_len))
+
+
+def hash_to_field_fp2_dev(msg_words, msg_len: int, dst: bytes):
+    """The Fp2 mirror: -> ((u0c0, u0c1), (u1c0, u1c1)) Montgomery limbs."""
+    a0, a1, b0, b1 = K.hash_to_field("msg", (msg_words,), dst, 4, msg_len)
+    return (a0, a1), (b0, b1)
+
+
+def beacon_digests_dev(msg):
+    """digest_beacon over a packed raw message, (round_words,) unchained or
+    (prev_words, round_words, has_prev) chained, falling back to H(round8)
+    where has_prev == 0 (the genesis slot) -> (..., 8) digest words, equal
+    to Scheme.digest_beacon.  SHA-256 through kernels.sha256_words."""
+    return SHA.beacon_digests(msg, K.sha256_words)
+
+
+# the message kind H1 reads for each device front of crypto/batch.py
+_FRONT_KIND = {"digest": "msg", "raw_unchained": "raw_unchained",
+               "raw_chained": "raw_chained"}
+
+
+def hash_to_field_front(front: str, msg, dst: bytes, fp2: bool):
+    """A device front's message -> (u0, u1) (Fp2 pairs when fp2): the
+    digest (raw fronts), expand_message_xmd and hash_to_field in ONE H1
+    launch on a CUDA tensor.  front "digest": msg = (digest_words,), the
+    32-byte digests; "raw_unchained" / "raw_chained" as beacon_digests_dev
+    takes them."""
+    u = K.hash_to_field(_FRONT_KIND[front], msg, dst, 4 if fp2 else 2)
+    if fp2:
+        return (u[0], u[1]), (u[2], u[3])
+    return u[0], u[1]

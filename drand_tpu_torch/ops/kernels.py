@@ -30,6 +30,11 @@ recovery, both signature groups) has a hand-written CUDA C++ kernel
   K8 scalar_mul_glv_mixed <- pallas_field._ladder_glv_mixed_call
                                                    (csrc/glv.cu, G1 and G2)
      (a thread group per lane over fp12prog.py's point programs)
+  H1 hash_to_field     <- (no Pallas counterpart: XLA lax.scan,
+                           drand_tpu/ops/sha256.py:109)    (csrc/h2f.cu)
+     (the beacon digest, expand_message_xmd and hash_to_field, Fp or Fp2,
+      one thread a lane; also SHA-256 of word rows (sha256_words) and the
+      xmd bytes (expand_msg_xmd))
 
 Each wrapper takes the plain engine's ``(..., 24)`` int64 Montgomery limbs
 (a G2 point: Fp2 pairs of them, and the wrapper dispatches on that arity).
@@ -63,6 +68,7 @@ import torch
 
 from . import fp12prog as FP
 from . import limbs as L
+from . import sha256 as SHA
 from . import tower as T
 from .curve import G1, G2, _leaf, _tmap
 from ..crypto.host.params import P, B2
@@ -77,7 +83,8 @@ LAUNCHES = {"pow_fixed": 0, "scalar_mul_fixed": 0, "miller_loop": 0,
             "scalar_mul_glv_mixed": 0, "pow_fixed_fp2": 0,
             "scalar_mul_fixed_g2": 0, "sum_rows_g2": 0,
             "scalar_mul_glv_mixed_g2": 0, "scalar_mul_bits": 0,
-            "scalar_mul_bits_g2": 0}
+            "scalar_mul_bits_g2": 0, "hash_to_field": 0,
+            "hash_to_field_fp2": 0, "sha256_words": 0, "expand_msg_xmd": 0}
 # (wrapper, exponent / scalar / ladder bits / rows / None, lanes)
 SHAPES = collections.Counter()
 
@@ -208,12 +215,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                         i64, vp]
     lib.drand_group_layout.argtypes = [i32, i32, vp]
     lib.drand_sum_layout.argtypes = [i32, i32, vp]
+    lib.drand_sha256.argtypes = [vp, i32, vp, vp, i64, vp]
+    lib.drand_xmd.argtypes = [vp, i32, vp, vp, i32, i64, vp]
+    lib.drand_h2f.argtypes = [i32, vp, i32, vp, vp, vp, vp, i32, i64, vp]
     for fn in (lib.drand_pow, lib.drand_inv, lib.drand_ladder_g1,
                lib.drand_miller, lib.drand_finalexp, lib.drand_sum_g1,
                lib.drand_glv_g1, lib.drand_pow2, lib.drand_ladder_g2,
                lib.drand_sum_g2, lib.drand_glv_g2, lib.drand_ladder_var_g1,
                lib.drand_ladder_var_g2, lib.drand_group_layout,
-               lib.drand_sum_layout):
+               lib.drand_sum_layout, lib.drand_sha256, lib.drand_xmd,
+               lib.drand_h2f):
         fn.restype = ctypes.c_int
     return lib
 
@@ -866,3 +877,180 @@ def scalar_mul_glv_mixed(pt, phi, p3, bits0, bits1):
               FP.WIDTH[kind], bits.data_ptr(), nbits, n, _stream(dev)), name)
     _count(name, nbits, n)
     return _unflat([o.reshape(shape) for o in outs], g2)
+
+
+# ---------------------------------------------------------------------------
+# H1: SHA-256, expand_message_xmd and hash_to_field (no Pallas counterpart:
+# the JAX package runs these stages as XLA code)
+# ---------------------------------------------------------------------------
+
+HTF_L = 64                  # bytes an RFC 9380 field element takes (L)
+# the message a lane hands hash_to_field: "msg" a row of words of msg_len
+# bytes is the xmd message itself; "raw_unchained" the 2 round words,
+# digested as H(round8); "raw_chained" (prev words, round words, has_prev),
+# digested as H(prev || round8), or H(round8) where has_prev is 0
+H1_KINDS = {"msg": 0, "raw_unchained": 1, "raw_chained": 2}
+# csrc/h2f.cu's frame header
+_F_ELL, _F_NSWI, _F_B0, _F_BI, _F_D1, _F_D2, _F_HEADER = 0, 1, 2, 3, 4, 5, 8
+
+
+def _sha_frame_words(fr):
+    mid, fill, sw = fr
+    return [*mid.tolist(), fill, len(sw), *sw.tolist()]
+
+
+def _int32(words) -> tuple:
+    """32-bit words -> their int32 bit patterns (the frame's dtype)."""
+    return tuple(np.array(words, np.int64).astype(np.uint32).view(np.int32)
+                 .tolist())
+
+
+@lru_cache(maxsize=None)
+def h1_frame(len_in_bytes: int, dst: bytes, msg_len: int = 32,
+             digest_k: int = 0) -> tuple:
+    """The static framing H1 reads, as int32 bit patterns:
+    csrc/h2f.cu's header, then b_0's SHA frame (the Z_pad midstate,
+    l_i_b || 0 || DST' and the padding after msg_len message bytes), the
+    suffix rows of b_1 .. b_ell (i || DST' and the padding) and, for the
+    raw kinds (digest_k, the words a digest hashes: 2 unchained, the prev
+    words + 2 chained), the digests' SHA frames.  Every piece comes from
+    ops/sha256.py frame."""
+    ell = (len_in_bytes + 31) // 32
+    assert 0 < ell <= 255 and len(dst) <= 255 and len_in_bytes % 4 == 0
+    dst_prime = dst + bytes([len(dst)])
+    words = [0] * _F_HEADER
+    words[_F_ELL] = ell
+    words[_F_B0] = len(words)
+    words += _sha_frame_words(SHA.frame(
+        (msg_len + 3) // 4, msg_len,
+        len_in_bytes.to_bytes(2, "big") + b"\x00" + dst_prime, b"\x00" * 64))
+    rows = [SHA.frame(8, 32, bytes([i]) + dst_prime)
+            for i in range(1, ell + 1)]
+    assert all(r[1] == 0 and (r[0] == SHA._H0).all() for r in rows)
+    words[_F_NSWI] = len(rows[0][2])
+    words[_F_BI] = len(words)
+    for r in rows:
+        words += r[2].tolist()
+    if digest_k:
+        words[_F_D1] = len(words)
+        words += _sha_frame_words(SHA.frame(digest_k))
+        words[_F_D2] = len(words)
+        words += _sha_frame_words(SHA.frame(2))
+    return _int32(words)
+
+
+@lru_cache(maxsize=None)
+def _frame_tensor(words: tuple, device: str) -> torch.Tensor:
+    return torch.tensor(words, dtype=torch.int32, device=device)
+
+
+def _word_rows(x, k: int):
+    """(..., k) word tensor -> contiguous (lanes, k) int64 rows."""
+    if x.dtype != torch.int64:
+        raise TypeError(f"H1: words must be int64, got {x.dtype}")
+    n = int(np.prod(x.shape[:-1], dtype=np.int64))
+    return x.reshape(n, k).contiguous(), n
+
+
+def sha256_words(words, dyn_len=None, tail: bytes = b"", prefix: bytes = b""):
+    """SHA-256(prefix || dyn || tail) of each row of (..., k) BE words ->
+    (..., 8) digest words (ops/sha256.py sha256_words' contract): H1's
+    drand_sha256 on a CUDA tensor, the plain version on a CPU tensor."""
+    if not _on_card(words):
+        return SHA.sha256_words(words, dyn_len, tail, prefix)
+    k = words.shape[-1]
+    x, n = _word_rows(words, k)
+    fr = _frame_tensor(_int32(_sha_frame_words(
+        SHA.frame(k, dyn_len, tail, prefix))), str(words.device))
+    out = torch.empty((n, 8), dtype=torch.int64, device=words.device)
+    _check(_lib().drand_sha256(x.data_ptr(), k, fr.data_ptr(),
+                               out.data_ptr(), n, _stream(words.device)),
+           "sha256_words")
+    _count("sha256_words", 4 * k if dyn_len is None else dyn_len, n)
+    return out.reshape(words.shape[:-1] + (8,))
+
+
+def expand_msg_xmd_plain(msg_words, msg_len: int, dst: bytes,
+                         len_in_bytes: int):
+    """RFC 9380 expand_message_xmd over SHA-256 (plain): b_0 from the Z_pad
+    midstate, then the chain b_i = H((b_0 ^ b_{i-1}) || i || DST')."""
+    ell = (len_in_bytes + 31) // 32
+    assert 0 < ell <= 255 and len(dst) <= 255 and len_in_bytes % 4 == 0
+    dst_prime = dst + bytes([len(dst)])
+    b0 = SHA.sha256_words(msg_words, msg_len,
+                          tail=len_in_bytes.to_bytes(2, "big") + b"\x00"
+                          + dst_prime, prefix=b"\x00" * 64)
+    bi = SHA.sha256_words(b0, tail=b"\x01" + dst_prime)
+    out = [bi]
+    for i in range(2, ell + 1):
+        bi = SHA.sha256_words(b0 ^ bi, tail=bytes([i]) + dst_prime)
+        out.append(bi)
+    return torch.cat(out, -1)[..., :len_in_bytes // 4]
+
+
+def expand_msg_xmd(msg_words, msg_len: int, dst: bytes, len_in_bytes: int):
+    """(..., k) BE message words of msg_len bytes a lane -> (...,
+    len_in_bytes / 4) uniform words: H1's drand_xmd on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if not _on_card(msg_words):
+        return expand_msg_xmd_plain(msg_words, msg_len, dst, len_in_bytes)
+    k = msg_words.shape[-1]
+    x, n = _word_rows(msg_words, k)
+    fr = _frame_tensor(h1_frame(len_in_bytes, dst, msg_len),
+                       str(msg_words.device))
+    nw = len_in_bytes // 4
+    out = torch.empty((n, nw), dtype=torch.int64, device=msg_words.device)
+    _check(_lib().drand_xmd(x.data_ptr(), k, fr.data_ptr(), out.data_ptr(),
+                            nw, n, _stream(msg_words.device)),
+           "expand_msg_xmd")
+    _count("expand_msg_xmd", len_in_bytes, n)
+    return out.reshape(msg_words.shape[:-1] + (nw,))
+
+
+def hash_to_field_plain(kind: str, msg, dst: bytes, count: int,
+                        msg_len: int = 32):
+    """The message front (plain): the raw kinds' digests
+    (ops/sha256.py beacon_digests), expand_message_xmd to count * 64
+    bytes, each 64-byte chunk OS2IP mod p in Montgomery form
+    (limbs.be_words_to_mont).  -> count limb tensors."""
+    if kind == "msg":
+        words = msg[0]
+    else:
+        words, msg_len = SHA.beacon_digests(msg), 32
+    ub = expand_msg_xmd_plain(words, msg_len, dst, count * HTF_L)
+    return [L.be_words_to_mont(ub[..., 16 * i:16 * (i + 1)])
+            for i in range(count)]
+
+
+def hash_to_field(kind: str, msg, dst: bytes, count: int,
+                  msg_len: int = 32):
+    """Messages -> count field elements a lane ((lanes, 24) Montgomery
+    limbs each; 2 for Fp, 4 for two Fp2 elements, c0 before c1).  kind
+    and msg as in H1_KINDS, words int64.  One launch of H1's drand_h2f on
+    a CUDA tensor, which writes the limb tensors itself; the plain
+    version on a CPU tensor.  Counted as hash_to_field (count 2) or
+    hash_to_field_fp2 (count 4), keyed by kind."""
+    if kind not in H1_KINDS:
+        raise ValueError(f"hash_to_field: unknown message kind {kind!r}")
+    if not _on_card(msg[0]):
+        return hash_to_field_plain(kind, msg, dst, count, msg_len)
+    dev = msg[0].device
+    a, n = _word_rows(msg[0], msg[0].shape[-1])
+    if kind == "msg":
+        digest_k, rnd, has = 0, a, a
+    elif kind == "raw_unchained":
+        digest_k, rnd, has, msg_len = 2, a, a, 32
+    else:
+        rnd, _ = _word_rows(msg[1], 2)
+        has = msg[2].reshape(n).to(torch.int64).contiguous()
+        digest_k, msg_len = a.shape[1] + 2, 32
+    fr = _frame_tensor(h1_frame(count * HTF_L, dst, msg_len, digest_k),
+                       str(dev))
+    outs = [torch.empty((n, L.NLIMB), dtype=L.DTYPE, device=dev)
+            for _ in range(count)]
+    name = "hash_to_field_fp2" if count == 4 else "hash_to_field"
+    _check(_lib().drand_h2f(H1_KINDS[kind], a.data_ptr(), a.shape[1],
+                            rnd.data_ptr(), has.data_ptr(), fr.data_ptr(),
+                            _ptrs(outs), count, n, _stream(dev)), name)
+    _count(name, kind, n)
+    return outs

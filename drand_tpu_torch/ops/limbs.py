@@ -208,6 +208,30 @@ def inv_mod(a):
     return pow_fixed(a, P - 2)
 
 
+# R^3 mod p: the to-Montgomery factor for the HIGH 2^384-scaled half of a
+# 512-bit OS2IP chunk (mont_mul(hi, R^3) = hi R^2 = mont(hi 2^384)).
+R3_MONT = R2_MONT * R_MONT % P
+R3_LIMBS = int_to_limbs(R3_MONT)
+
+
+def be_words_to_mont(w):
+    """(..., 16) int64 BIG-ENDIAN 32-bit words -- one 64-byte RFC 9380
+    OS2IP chunk per lane -> Montgomery limbs of the value mod p.
+
+    v = hi 2^384 + lo with hi < 2^128, lo < 2^384; both halves stay raw
+    (lo possibly >= p) and one stacked mont_mul against R^2 / R^3 lands
+    each in canonical Montgomery form: a b < R p keeps REDC's result below
+    2p, so its single conditional subtract still canonicalizes."""
+    rev = w.flip(-1)                              # LE word order
+    limbs32 = torch.stack([rev & MASK, rev >> LIMB_BITS], -1) \
+        .reshape(w.shape[:-1] + (NLIMB + 8,))
+    lo = limbs32[..., :NLIMB]
+    hi = F.pad(limbs32[..., NLIMB:], (0, NLIMB - 8))
+    mlo, mhi = mul_many([(lo, const(R2_MONT, _dev(w)).expand(lo.shape)),
+                         (hi, const(R3_MONT, _dev(w)).expand(hi.shape))])
+    return add_mod(mlo, mhi)
+
+
 def ones_like(a):
     """1 (Montgomery) with a's shape."""
     return mont_const(1, a.device).expand(a.shape)

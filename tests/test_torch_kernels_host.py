@@ -12,6 +12,7 @@ against the same plain versions by chip_smoke.py.
 """
 
 import ctypes
+import hashlib
 import random
 import shutil
 import subprocess
@@ -22,11 +23,15 @@ import torch
 
 from drand_tpu_torch.crypto.host.curve import G1 as HG1, G2 as HG2
 from drand_tpu_torch.crypto.host import field as HF
-from drand_tpu_torch.crypto.host.params import P, R, X
+from drand_tpu_torch.crypto import schemes as S
+from drand_tpu_torch.crypto.host import h2c as H2C
+from drand_tpu_torch.crypto.host.params import DST_G1, DST_G2, P, R, X
 from drand_tpu_torch.ops import curve as DC
 from drand_tpu_torch.ops import fp12prog as FP
+from drand_tpu_torch.ops import h2c as DH
 from drand_tpu_torch.ops import kernels as K
 from drand_tpu_torch.ops import limbs as L
+from drand_tpu_torch.ops import sha256 as SHA
 from drand_tpu_torch.ops import tower as T
 
 RNG = random.Random(20240608)
@@ -851,3 +856,103 @@ def test_glv_kernel_refuses_an_uncompiled_width(kernel_path, monkeypatch):
     monkeypatch.setitem(FP.WIDTH, "glv_g1", 3)
     with pytest.raises(RuntimeError, match="cudaError 1"):
         K.scalar_mul_glv_mixed(*glv_tables())
+
+
+# ---------------------------------------------------------------------------
+# H1 (csrc/h2f.cu): SHA-256, expand_message_xmd and hash_to_field
+# ---------------------------------------------------------------------------
+
+H1_DST = b"QUUX-V01-CS02-with-expander-SHA256-128"
+
+
+def _h1_words(msgs, n=None):
+    return torch.from_numpy(SHA.pack_msgs_to_words(msgs, n))
+
+
+@pytest.mark.parametrize("size", [0, 3, 8, 17, 31, 32, 56, 64, 104, 200])
+def test_h1_sha256_kernel_matches_plain_and_hashlib(kernel_path, size):
+    msgs = [bytes(RNG.randrange(256) for _ in range(size)) for _ in range(5)]
+    w = _h1_words(msgs, size)
+    got = K.sha256_words(w, size)
+    assert K.SHAPES == {("sha256_words", size, 5): 1}
+    _same([got], [SHA.sha256_words(w, size)])
+    assert SHA.digest_bytes(got) == [hashlib.sha256(m).digest()
+                                     for m in msgs]
+
+
+@pytest.mark.parametrize("msg", [b"", b"abc", b"x" * 17,
+                                 b"a512_" + b"a" * 507],
+                         ids=["empty", "abc", "17B", "512B"])
+@pytest.mark.parametrize("n", [32, 128, 256])
+def test_h1_xmd_kernel_matches_plain_and_host(kernel_path, msg, n):
+    w = _h1_words([msg] * 3, len(msg))
+    got = K.expand_msg_xmd(w, len(msg), H1_DST, n)
+    assert K.LAUNCHES["expand_msg_xmd"] == 1
+    _same([got], [K.expand_msg_xmd_plain(w, len(msg), H1_DST, n)])
+    for row in got.numpy():
+        assert row.astype(">u4").tobytes() == \
+            H2C.expand_message_xmd(msg, H1_DST, n)
+
+
+def _h1_messages(kind, lanes=11):
+    """(msg, host messages) of a message kind: random rounds, lane 9 a pad
+    lane (round 0, no previous signature), chained lanes 2, 5 and 9 with
+    has_prev = 0 (the genesis slot)."""
+    sch = S.scheme_from_name(S.DEFAULT_SCHEME_ID)
+    rounds = [RNG.randrange(1 << 64) for _ in range(lanes)]
+    rounds[9] = 0
+    rw = _h1_words([r.to_bytes(8, "big") for r in rounds])
+    if kind == "raw_unchained":
+        return (rw,), [sch.digest_beacon(r, None) for r in rounds]
+    prevs = [bytes(RNG.randrange(256) for _ in range(96)) for _ in rounds]
+    for i in (2, 5, 9):
+        prevs[i] = None
+    msgs = [sch.digest_beacon(r, p) for r, p in zip(rounds, prevs)]
+    if kind == "msg":
+        return (_h1_words(msgs, 32),), msgs
+    pw = _h1_words([p or b"\x00" * 96 for p in prevs])
+    return (pw, rw, torch.tensor([int(p is not None) for p in prevs])), msgs
+
+
+@pytest.mark.parametrize("kind", ["msg", "raw_unchained", "raw_chained"])
+@pytest.mark.parametrize("fp2", [False, True], ids=["fp", "fp2"])
+def test_h1_hash_to_field_kernel_matches_plain_and_host(kernel_path, kind,
+                                                        fp2):
+    """H1's message front, limb for limb against the plain version and as
+    integers against hashlib + the host hash_to_field, pad lanes and
+    has_prev = 0 lanes included; one launch, counted by field."""
+    msg, msgs = _h1_messages(kind)
+    dst = DST_G2 if fp2 else DST_G1
+    count = 4 if fp2 else 2
+    got = K.hash_to_field(kind, msg, dst, count)
+    name = "hash_to_field_fp2" if fp2 else "hash_to_field"
+    assert K.SHAPES == {(name, kind, 11): 1}
+    _same(got, K.hash_to_field_plain(kind, msg, dst, count))
+    ints = [L.decode_mont(u) for u in got]
+    for i, m in enumerate(msgs):
+        if fp2:
+            want = [c for u in H2C.hash_to_field_fp2(m, dst, 2) for c in u]
+        else:
+            want = H2C.hash_to_field_fp(m, dst, 2)
+        assert [col[i] for col in ints] == list(want)
+
+
+def test_h1_odd_message_lengths_through_the_front(kernel_path):
+    """hash_to_field_fp_dev on messages whose last word is partial (the
+    fill merged in the kernel) and on an empty message."""
+    for msg in (b"", b"abc", b"y" * 31, b"z" * 65):
+        u0, u1 = DH.hash_to_field_fp_dev(_h1_words([msg] * 2, len(msg)),
+                                         len(msg), DST_G1)
+        assert [L.decode_mont(u0)[1], L.decode_mont(u1)[1]] == \
+            H2C.hash_to_field_fp(msg, DST_G1, 2)
+
+
+def test_h1_refuses_a_bad_kind(kernel_path):
+    w = _h1_words([b"\x00" * 32])
+    with pytest.raises(ValueError, match="message kind"):
+        K.hash_to_field("fields", (w,), DST_G1, 2)
+    lib = K._lib()
+    fr = K._frame_tensor(K.h1_frame(128, DST_G1), "cpu")
+    out = torch.empty((1, 24), dtype=torch.int64)
+    assert lib.drand_h2f(3, w.data_ptr(), 8, w.data_ptr(), w.data_ptr(),
+                         fr.data_ptr(), K._ptrs([out]), 1, 1, None) == 1
