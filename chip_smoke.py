@@ -37,6 +37,25 @@ package's bench config 3), for ``bls-unchained-on-g1`` (``g1_*``) and
                        recovered signature equals the collective-secret one
                        byte for byte and verifies against the group key.
 
+The verify service (``drand_tpu_torch/crypto/verify_service.py``), its pool
+enumerating the card (one group), serving the rounds above through its entry
+points (``VerifyService.handle``, then ``submit`` / ``verify_batch``):
+
+  verify_service       16 caller threads each submit a 512-round slice of
+                       the G1 chain, then of the chained G2 chain, bad
+                       slots included, in the background lane: one
+                       8192-lane dispatch a chain (fill 1.0), every
+                       future's verdicts equal to that slice of the direct
+                       ``verify_batch`` mask, every kernel of the chain's
+                       RLC list launched; a catch-up of 16,384 G1 rounds
+                       (two 8192 dispatches) while 8 one-round live
+                       submissions arrive (their latencies, the
+                       preemptions); no failover, watchdog trip or host
+                       fallback in either; then a failover drill on a
+                       4-round handle whose backend raises twice: the walk
+                       healthy -> suspect -> degraded -> probing -> healthy,
+                       the host fallback's verdicts, the device again.
+
 Above 64 rounds every verify path takes the device message front: the host
 packs message words with numpy, and H1 (csrc/h2f.cu) hashes them to the
 field at the start of the device pass (``bls-unchained-on-g1`` and
@@ -482,6 +501,278 @@ def entry_stats(regs, src, *needles):
 # ---------------------------------------------------------------------------
 
 
+def service_phases(ctx):
+    """The verify_service phase (see the module doc): coalescing at full
+    width, a catch-up with live work, the failover drill, and the checks
+    that nothing fell back to the host outside the drill.  Returns the
+    numbers it printed."""
+    import threading
+    torch, K, B = ctx["torch"], ctx["K"], ctx["B"]
+    schemes, HS, n = ctx["schemes"], ctx["HS"], ctx["n"]
+    from drand_tpu_torch import metrics
+    from drand_tpu_torch.crypto import verify_service as VS
+    from drand_tpu_torch.crypto.hostverify import HostBatchVerifier
+
+    def counter_total(metric):
+        return sum(v for suffix, _, v in metric.samples() if suffix == "")
+
+    def service_health(svc):
+        return {"backends": svc.stats()["backends"],
+                "failovers": svc.stats()["failovers"],
+                "watchdog_trips": svc.stats()["watchdog_trips"],
+                "host_fallbacks_built": sum(
+                    s.fallback is not None for s in svc._slots.values())}
+
+    g1 = schemes.scheme_from_name(schemes.SHORT_SIG_SCHEME_ID)
+    chained = schemes.scheme_from_name(schemes.DEFAULT_SCHEME_ID)
+    failovers0 = counter_total(metrics.verify_failovers)
+    trips0 = counter_total(metrics.verify_watchdog_trips)
+    # a long coalescing window: the 16 callers' slices must meet in one
+    # batch whatever the threads' start-up order; the pad flushes it.  At
+    # the default --rounds the pad is the service's default (AUTO: 8192)
+    svc = VS.VerifyService(pad=0 if n == VS.DEFAULT_PAD else n,
+                           background_window=5.0)
+    pool = svc._get_pool()
+    if pool.n_groups != 1 or pool.n_devices != torch.cuda.device_count() \
+            or pool.pool_sharding() is not None:
+        fail(f"the service's pool: {pool.snapshot()}, placement "
+             f"{pool.pool_sharding()}")
+    h1 = svc.handle(g1, HS.g2_to_bytes(ctx["pk"]))
+    h2 = svc.handle(chained, ctx["pk2"])
+    if (h1.kind, h2.kind) != ("device", "device") \
+            or h1.backend.pad_to != n or h2.backend.pad_to != n:
+        fail(f"service handles: {h1.kind} {h2.kind}, pads "
+             f"{h1.backend.pad_to} {h2.backend.pad_to}")
+    # the scheduler and packer threads run on the default stream of the
+    # card, as the caller does: a chunk's copy and its dispatch are ordered
+    streams = []
+    th = threading.Thread(target=lambda: streams.append(
+        torch.cuda.current_stream(0) == torch.cuda.default_stream(0)))
+    th.start()
+    th.join()
+
+    # -- 1. coalescing at full width: 16 caller threads, 512 rounds each ----
+    out = {}
+    chains = (("g1", h1, ctx["sigs"], None, ctx["g1_mask"],
+               G1_RLC_KERNELS),
+              ("g2_chained", h2, ctx["bsigs"], ctx["cprevs"],
+               ctx["g2_mask"], G2_RLC_KERNELS))
+    for tag, h, csigs, cprevs, mask, kernels in chains:
+        callers, width = 16, n // 16
+        thread_wall = None
+        if tag == "g1":
+            # the same verify_batch, direct, from a fresh thread just
+            # before the service's run: the service's situation without
+            # the service (the direct wall above ran on the main thread,
+            # several phases earlier)
+            box = []
+
+            def direct():
+                t = time.perf_counter()
+                box.append(h.backend.verify_batch(ctx["rounds"], csigs))
+                torch.cuda.synchronize()
+                box.append(time.perf_counter() - t)
+
+            th = threading.Thread(target=direct)
+            th.start()
+            th.join()
+            if len(box) != 2 or not (box[0] == mask).all():
+                fail("the direct verify_batch from a thread disagrees with "
+                     "the direct mask")
+            thread_wall = box[1]
+        before = svc.stats()
+        futs = [None] * callers
+        gate = threading.Barrier(callers)
+
+        def caller(i):
+            lo, hi = i * width, (i + 1) * width
+            gate.wait()
+            futs[i] = h.submit(ctx["rounds"][lo:hi], csigs[lo:hi],
+                               cprevs[lo:hi] if cprevs else None)
+
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(callers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        got = [f.result(600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        after = svc.stats()
+        d = {k: after[k] - before[k] for k in ("dispatches", "submitted",
+                                                "dispatch_lanes",
+                                                "dispatch_slots")}
+        equal = all((g == mask[i * width:(i + 1) * width]).all()
+                    for i, g in enumerate(got))
+        out[tag] = {"callers": callers, "rounds_per_caller": width,
+                    "verdicts_equal_direct_mask": bool(equal),
+                    "bad_slots": int((~mask).sum()),
+                    "dispatches": d["dispatches"],
+                    "submitted": d["submitted"],
+                    "dispatch_lanes": d["dispatch_lanes"],
+                    "fill_ratio": d["dispatch_lanes"]
+                    / max(1, d["dispatch_slots"]),
+                    "wall_s": wall, "rounds_per_s": n / wall,
+                    "direct_verify_batch_wall_s": ctx["direct_walls"][
+                        tag[:2]],
+                    "direct_rounds_per_s": n / ctx["direct_walls"][tag[:2]],
+                    "direct_in_a_thread_wall_s": thread_wall,
+                    "launches": launches}
+        if not equal:
+            fail(f"service {tag}: verdicts differ from the direct mask")
+        if d["dispatches"] != 1 or d["dispatch_lanes"] != n \
+                or d["dispatch_slots"] != n or d["submitted"] != callers:
+            fail(f"service {tag}: want one {n}-lane dispatch of {callers} "
+                 f"submissions, got {d}")
+        if any(launches[k] == 0 for k in kernels):
+            fail(f"service {tag}: a kernel of the path was not launched: "
+                 f"{launches}")
+
+    # -- 2. a catch-up of 2 x pad rounds with 8 one-round live submissions --
+    before = svc.stats()
+    big_rounds = ctx["rounds"] * 2
+    big_sigs = ctx["good_sigs"] * 2
+    live_lat, live_ok = [], []
+    t0 = time.perf_counter()
+    catchup = h1.submit(big_rounds, big_sigs)
+    done_at = []
+    catchup.add_done_callback(lambda f: done_at.append(time.perf_counter()))
+    for i in range(8):
+        time.sleep(0.1)
+        ts = time.perf_counter()
+        r = (i * 997) % n
+        f = h1.submit([ctx["rounds"][r]], [ctx["good_sigs"][r]],
+                      lane=VS.LANE_LIVE)
+        f.add_done_callback(lambda f, ts=ts: live_lat.append(
+            time.perf_counter() - ts))
+        live_ok.append(f)
+    cu = catchup.result(600)
+    lives = [f.result(600) for f in live_ok]
+    torch.cuda.synchronize()
+    cu_wall = done_at[0] - t0 if done_at else time.perf_counter() - t0
+    after = svc.stats()
+    d = {k: after[k] - before[k] for k in ("dispatches", "preemptions",
+                                            "sharded_dispatches")}
+    out["catch_up"] = {
+        "rounds": len(big_rounds), "all_valid": bool(cu.all()),
+        "shard_threshold": svc._shard_threshold_for(svc._slots[h1.key]),
+        "wall_s": cu_wall, "rounds_per_s": len(big_rounds) / cu_wall,
+        "live_submissions": len(lives),
+        "live_all_valid": all(bool(v.all()) for v in lives),
+        "live_latency_s": sorted(live_lat),
+        "live_latency_p50_s": float(np.median(live_lat)) if live_lat
+        else None,
+        "live_latency_max_s": max(live_lat) if live_lat else None,
+        "dispatches": d["dispatches"], "preemptions": d["preemptions"],
+        "sharded_dispatches": d["sharded_dispatches"]}
+    if not cu.all() or len(cu) != 2 * n or not all(v.all() for v in lives):
+        fail(f"service catch-up verdicts: {out['catch_up']}")
+    if d["sharded_dispatches"] != 0 or len(live_lat) != 8:
+        fail(f"service catch-up: {out['catch_up']}")
+
+    # -- 4. no hidden fallback in 1 and 2 ------------------------------------
+    health = service_health(svc)
+    health["failovers_total_metric"] = counter_total(
+        metrics.verify_failovers) - failovers0
+    health["watchdog_trips_metric"] = counter_total(
+        metrics.verify_watchdog_trips) - trips0
+    health["default_stream_in_a_new_thread"] = streams == [True]
+    out["health"] = health
+    svc.stop()
+    if any(v != "healthy" for v in health["backends"].values()) \
+            or health["failovers"] or health["watchdog_trips"] \
+            or health["host_fallbacks_built"] \
+            or health["failovers_total_metric"] \
+            or health["watchdog_trips_metric"] or streams != [True]:
+        fail(f"the service fell back or tripped outside the drill: {health}")
+
+    # -- 3. the failover drill: a backend that raises on its first two
+    # dispatches degrades to the host fallback and is re-promoted ----------
+    class Flaky:
+        """The port's verifier, raising on its first two calls."""
+
+        kind = "device"
+
+        def __init__(self, inner):
+            self.inner, self.calls = inner, 0
+
+        def verify_batch(self, rounds_, sigs_, prevs_=None):
+            self.calls += 1
+            if self.calls <= 2:
+                raise RuntimeError(f"injected device fault {self.calls}")
+            return self.inner.verify_batch(rounds_, sigs_, prevs_)
+
+    built = []
+
+    def factory(group):
+        built.append(Flaky(B.BatchBeaconVerifier(
+            g1, HS.g2_to_bytes(ctx["pk"]), pad_to=8,
+            sharding=group.sharding())))
+        return built[-1]
+
+    drill = VS.VerifyService(pad=8, background_window=0.0,
+                             probe_interval=1.0)
+    walk = []
+    real_gauge = drill._set_state_gauge
+
+    def gauge(slot, old_gid=None):
+        walk.append(slot.state)
+        real_gauge(slot, old_gid)
+
+    drill._set_state_gauge = gauge
+    pk_bytes = HS.g2_to_bytes(ctx["pk"])
+    hd = drill.handle(g1, pk_bytes, backend_factory=factory,
+                      fallback=HostBatchVerifier(g1, pk_bytes))
+    d_rounds = ctx["rounds"][:4]
+    d_sigs = list(ctx["good_sigs"][:4])
+    d_sigs[2] = d_sigs[1]                   # one bad slot
+    want = np.array([True, True, False, True])
+    t0 = time.perf_counter()
+    got = hd.verify_batch(d_rounds, d_sigs)
+    degraded_s = time.perf_counter() - t0
+    slot = drill._slots[hd.key]
+    deadline = time.monotonic() + 120
+    while slot.state != VS.STATE_HEALTHY and time.monotonic() < deadline:
+        time.sleep(0.05)
+    promoted_s = time.perf_counter() - t0
+    calls_before = built[0].calls
+    again = hd.verify_batch(d_rounds, d_sigs)
+    dst = drill.stats()
+    drill.stop()
+    out["failover_drill"] = {
+        "rounds": 4, "verdicts": got.tolist(), "after_promotion":
+        again.tolist(), "state_walk": walk, "failovers": dst["failovers"],
+        "promotions": dst["promotions"], "degraded_wall_s": degraded_s,
+        "repromoted_after_s": promoted_s,
+        "device_served_after": built[0].calls > calls_before}
+    want_walk = [VS.STATE_HEALTHY, VS.STATE_SUSPECT, VS.STATE_DEGRADED,
+                 VS.STATE_PROBING, VS.STATE_HEALTHY]
+    if got.tolist() != want.tolist() or again.tolist() != want.tolist() \
+            or walk[:5] != want_walk or dst["failovers"] != 1 \
+            or dst["promotions"] != 1 or not built[0].calls > calls_before:
+        fail(f"the failover drill: {out['failover_drill']}")
+
+    emit({"phase": "verify_service", **out, "device": ctx["name"],
+          "nvidia_smi": ctx["smi_line"],
+          "tolerance": "exact: every future's verdicts equal the direct "
+                       "mask's slice"})
+    say(f"verify_service: coalesced g1 {out['g1']['rounds_per_s']:.0f} "
+        f"rounds/s (direct {out['g1']['direct_rounds_per_s']:.0f}, from a "
+        f"thread {n / out['g1']['direct_in_a_thread_wall_s']:.0f}), "
+        f"g2 chained {out['g2_chained']['rounds_per_s']:.0f} "
+        f"(direct {out['g2_chained']['direct_rounds_per_s']:.0f}); "
+        f"catch-up {out['catch_up']['wall_s']:.3f} s, live p50 / max "
+        f"{out['catch_up']['live_latency_p50_s']:.3f} / "
+        f"{out['catch_up']['live_latency_max_s']:.3f} s, preemptions "
+        f"{out['catch_up']['preemptions']}; {ctx['smi_line']}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=ROUNDS)
@@ -726,6 +1017,7 @@ def main():
     if not ok:
         wrong = np.nonzero(got != expected)[0][:20].tolist()
         fail(f"verify_batch verdicts differ from the expected ones at {wrong}")
+    g1_mask = got.copy()        # the direct mask, for the service phase
 
     # -- phase 3c: the exact pass over the whole batch (slice 1's path) ------
     t0 = time.perf_counter()
@@ -881,6 +1173,7 @@ def main():
         wrong = np.nonzero(got != g2_expected)[0][:20].tolist()
         fail(f"chained verify_batch verdicts differ from the expected ones "
              f"at {wrong}")
+    g2_mask = got.copy()
 
     t0 = time.perf_counter()
     g2x_enc, g2x_bad, g2x_front = g2v._pack_enc(rounds, bsigs, cprevs, pad)
@@ -1108,6 +1401,19 @@ def main():
 
     threshold_phases(schemes.SHORT_SIG_SCHEME_ID, "g1")
     threshold_phases(schemes.DEFAULT_SCHEME_ID, "g2")
+
+    # -- phase verify_service: the service's path, with the pool it owns ----
+    # A VerifyService whose pool enumerates the card (one group, no
+    # pool-wide placement) serves the rounds signed above through its
+    # entry points: handles, submit from many caller threads, the lanes,
+    # chunking, and its failure domain.
+    service_phases(
+        dict(torch=torch, K=K, B=B, schemes=schemes, HS=HS, pk=pk, pk2=pk2,
+             rounds=rounds, sigs=sigs, good_sigs=good_sigs, bsigs=bsigs,
+             cprevs=cprevs, g1_mask=g1_mask, g2_mask=g2_mask,
+             direct_walls={"g1": bis_wall, "g2": g2b_wall}, n=n, name=name,
+             smi_line=smi_line))
+    assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
 
     # -- phase 4: each kernel against its plain version at the path's shapes
     def timed(fn, reps):

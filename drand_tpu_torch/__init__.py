@@ -13,6 +13,11 @@ of it and never imports jax.  Layout mirrors the JAX package:
       the three beacon schemes (pedersen-bls-chained, pedersen-bls-unchained,
       bls-unchained-on-g1), their batched verifier, batched signing and
       threshold recovery, and batched threshold-partial verification
+  crypto/verify_service.py, crypto/device_pool.py
+      the verify service (coalescing, lanes, watchdog, host failover) and
+      its pool of CUDA devices, with crypto/tuning.py, crypto/hostverify.py
+      (the host fallback, crypto/host/pairing.py), metrics.py, common.py
+      and beacon/clock.py
   convert.py
       moves state between the JAX package and the port (tests)
 
@@ -21,5 +26,7 @@ Entry points, each on CUDA unless the caller passes ``device="cpu"``:
 ``crypto.batch.sign_batch(scheme, secret, msgs, device=None)``,
 ``crypto.batch.recover_batch(scheme, indices, partial_sigs, device=None)``
 and ``crypto.partials.BatchPartialVerifier(scheme, pub_poly, n_nodes,
-device=None)``.
+device=None)``, and ``crypto.verify_service.VerifyService().handle(scheme,
+public_key_bytes)`` (its pool enumerates the cards; a pool with no device
+raises for a device handle).
 """

@@ -72,6 +72,7 @@ from .host import tbls as HT
 from .host.params import P, G1_GEN, G2_GEN
 from .host.serialize import y_is_larger_fp, y_is_larger_fp2
 from .host.curve import G1, G2
+from .device_pool import build_round_sharding, placement_devices
 from .schemes import Scheme, GroupG1, GroupG2
 from ..ops import curve as DC
 from ..ops import h2c as DH
@@ -344,29 +345,33 @@ def _fused_verdict(sub_ok, ok, n):
     return ok & torch.all(sub_ok | (lanes >= n))
 
 
-def _rlc_run_g1sig(sig_x, sign, u0, u1, n, pk_aff, neg_g2_aff, bits=None):
-    """One RLC check over a padded batch of which the first n lanes are
-    real: decompress + hash, subgroup check per lane (a batched check is
-    unsound on G1), lanes [S, H] with the same coefficient on S_i and H_i,
-    the GLV MSM (K8), A = sum over the S half and B over the H half (K7,
-    the two rows of one launch), and e(A, -g2) * e(B, pk) == 1 in one
-    2-pair Miller loop.
+def _rlc_mask(sign, n):
+    """Lanes of a padded batch whose coefficients are drawn: the first n."""
+    return torch.arange(sign.shape[0], device=sign.device) < n
 
-    bits: the (b0, b1) planes of the coefficients, (64, pad) each; None
-    draws them on the device from fresh keys.  Returns (sub_ok, verdict)."""
+
+def _rlc_sums_g1sig(sig_x, sign, u0, u1, b0, b1):
+    """The stages of a G1 RLC pass up to its point sums, over any run of
+    lanes (a whole batch, or one device's shard of it): decompress + hash,
+    subgroup check per lane (a batched check is unsound on G1), lanes
+    [S, H] with the same coefficient (planes b0, b1) on S_i and H_i, the
+    GLV MSM (K8), A = sum over the S half and B over the H half (K7, the
+    two rows of one launch).  Returns (sub_ok, A, B), A and B Jacobian."""
     sig_jac, parse_ok, hm = DH.g1_decompress_and_hash(sig_x, sign, u0, u1)
     sig_jac = _gen_sub(DC.G1, _GEN_JAC_G1, sig_jac, parse_ok)
     sub_ok = DC.g1_in_subgroup(sig_jac) & parse_ok
     both = tuple(torch.cat([a, b], 0) for a, b in zip(sig_jac, hm))
-    if bits is None:
-        mask = torch.arange(sub_ok.shape[0], device=sub_ok.device) < n
-        bits = _device_rlc_bits(_rlc_keys(), mask)
-    b0, b1 = bits
     mult = DC.g1_glv_msm_terms(both, torch.cat([b0, b0], 1),
                                torch.cat([b1, b1], 1))
     half = b0.shape[1]
     sums = K.sum_rows(tuple(t.reshape(2, half, t.shape[-1]) for t in mult))
     A, B = (tuple(c[i] for c in sums) for i in (0, 1))
+    return sub_ok, A, B
+
+
+def _rlc_check_g1sig(A, B, pk_aff, neg_g2_aff):
+    """e(A, -g2) * e(B, pk) == 1 in one 2-pair Miller loop, as a device
+    bool."""
     ax, ay, _ = DC.G1.to_affine(A)
     bx, by, _ = DC.G1.to_affine(B)
     # e(A, -g2) * e(B, pk): the two pairs share one Miller launch
@@ -376,7 +381,19 @@ def _rlc_run_g1sig(sig_x, sign, u0, u1, n, pk_aff, neg_g2_aff, bits=None):
           pair(neg_g2_aff[0][1], pk_aff[0][1]))
     qy = (pair(neg_g2_aff[1][0], pk_aff[1][0]),
           pair(neg_g2_aff[1][1], pk_aff[1][1]))
-    ok = DP.paired_product_is_one(px, py, (qx, qy), 2)
+    return DP.paired_product_is_one(px, py, (qx, qy), 2)
+
+
+def _rlc_run_g1sig(sig_x, sign, u0, u1, n, pk_aff, neg_g2_aff, bits=None):
+    """One RLC check over a padded batch of which the first n lanes are
+    real: the sums (_rlc_sums_g1sig), then e(A, -g2) * e(B, pk) == 1.
+
+    bits: the (b0, b1) planes of the coefficients, (64, pad) each; None
+    draws them on the device from fresh keys.  Returns (sub_ok, verdict)."""
+    if bits is None:
+        bits = _device_rlc_bits(_rlc_keys(), _rlc_mask(sign, n))
+    sub_ok, A, B = _rlc_sums_g1sig(sig_x, sign, u0, u1, *bits)
+    ok = _rlc_check_g1sig(A, B, pk_aff, neg_g2_aff)
     return sub_ok, _fused_verdict(sub_ok, ok, n)
 
 
@@ -414,40 +431,50 @@ def _pair_g2(a, b):
     return tuple(DC._tmap(st, ca, cb) for ca, cb in zip(a, b))
 
 
-def _rlc_run_g2sig(sig_x, sign, u0, u1, n, pk_aff, neg_g1_aff, bits=None):
-    """One RLC check for the schemes with signatures on G2 and keys on G1
-    (pedersen-bls-chained / -unchained), first n lanes real.
-
-    Front end: ONE K5 E2 scan fuses decompression and both SSWU maps.
-    MSM: the 128-bit coefficient is sampled as base-x quarters (b0..b3);
-    lanes [S, psi S, H, psi H] run the 32-step psi^2-joint ladder (K8-G2)
-    with bl = [b0, b1, b0, b1], bh = [b2, b3, b2, b3], so S_i and H_i get
-    k_i = b0 + x b1 + x^2 b2 + x^3 b3; A sums the S half and B the H half
-    (K7-G2, the two rows of one launch); e(-g1, A) * e(pk, B) == 1 in one
-    2-pair Miller loop.
-
-    bits: the planes (b0, b1, b2, b3), (32, pad) each; None draws them on
-    the device from fresh keys.  Returns (sub_ok, verdict)."""
+def _rlc_sums_g2sig(sig_x, sign, u0, u1, b0, b1, b2, b3):
+    """The stages of a G2 RLC pass up to its point sums, over any run of
+    lanes (a whole batch, or one device's shard of it).  Front end: ONE K5
+    E2 scan fuses decompression and both SSWU maps.  MSM: the 128-bit
+    coefficient comes as base-x quarters (b0..b3); lanes [S, psi S, H,
+    psi H] run the 32-step psi^2-joint ladder (K8-G2) with bl = [b0, b1,
+    b0, b1], bh = [b2, b3, b2, b3], so S_i and H_i get k_i = b0 + x b1 +
+    x^2 b2 + x^3 b3; A sums the S half and B the H half (K7-G2, the two
+    rows of one launch).  Returns (sub_ok, A, B), A and B Jacobian."""
     sig_jac, parse_ok, hm = DH.g2_decompress_and_hash(sig_x[0], sig_x[1],
                                                       sign, u0, u1)
     sig_jac = _gen_sub(DC.G2, _GEN_JAC_G2, sig_jac, parse_ok)
     sub_ok = DC.g2_in_subgroup(sig_jac) & parse_ok
     base = DC._cat_lanes(sig_jac, DC.g2_psi(sig_jac), hm, DC.g2_psi(hm))
-    if bits is None:
-        mask = torch.arange(sub_ok.shape[0], device=sub_ok.device) < n
-        bits = _device_rlc_bits(_rlc_keys(), mask, split=4)
-    b0, b1, b2, b3 = bits
     mult = DC.g2_glv_msm_terms(base, torch.cat([b0, b1, b0, b1], 1),
                                torch.cat([b2, b3, b2, b3], 1))
     half = 2 * b0.shape[1]
     sums = K.sum_rows(DC._tmap(lambda t: t.reshape(2, half, t.shape[-1]),
                                mult))
-    A, Bp = (DC._tmap(lambda c: c[i], sums) for i in (0, 1))
+    A, B = (DC._tmap(lambda c: c[i], sums) for i in (0, 1))
+    return sub_ok, A, B
+
+
+def _rlc_check_g2sig(A, B, pk_aff, neg_g1_aff):
+    """e(-g1, A) * e(pk, B) == 1 in one 2-pair Miller loop, as a device
+    bool."""
     ax, ay, _ = DC.G2.to_affine(A)
-    bx, by, _ = DC.G2.to_affine(Bp)
+    bx, by, _ = DC.G2.to_affine(B)
     px = torch.stack([neg_g1_aff[0], pk_aff[0]])
     py = torch.stack([neg_g1_aff[1], pk_aff[1]])
-    ok = DP.paired_product_is_one(px, py, _pair_g2((ax, ay), (bx, by)), 2)
+    return DP.paired_product_is_one(px, py, _pair_g2((ax, ay), (bx, by)), 2)
+
+
+def _rlc_run_g2sig(sig_x, sign, u0, u1, n, pk_aff, neg_g1_aff, bits=None):
+    """One RLC check for the schemes with signatures on G2 and keys on G1
+    (pedersen-bls-chained / -unchained), first n lanes real: the sums
+    (_rlc_sums_g2sig), then e(-g1, A) * e(pk, B) == 1.
+
+    bits: the planes (b0, b1, b2, b3), (32, pad) each; None draws them on
+    the device from fresh keys.  Returns (sub_ok, verdict)."""
+    if bits is None:
+        bits = _device_rlc_bits(_rlc_keys(), _rlc_mask(sign, n), split=4)
+    sub_ok, A, B = _rlc_sums_g2sig(sig_x, sign, u0, u1, *bits)
+    ok = _rlc_check_g2sig(A, B, pk_aff, neg_g1_aff)
     return sub_ok, _fused_verdict(sub_ok, ok, n)
 
 
@@ -476,7 +503,19 @@ class BatchBeaconVerifier:
     run only on CUDA tensors, the CPU runs their plain versions.  pad_to:
     an optional canonical batch width every batch pads up to.  h2f_device:
     None picks the message front per pad width (h2f_device_default);
-    True / False pin the device or the host front."""
+    True / False pin the device or the host front.
+
+    Placement (crypto/device_pool.py): `sharding` (None, one device, or an
+    ordered list of devices) or `devices` (an explicit device group) pins
+    the verifier to its devices and wins over `device`.  On one device every
+    tensor lives there.  On several, an RLC pass at pad >= SHARD_MIN_PAD
+    that divides evenly draws the coefficients for the whole pad, runs each
+    contiguous shard's stages up to its partial point sums on its own
+    device, adds the partial sums on the first (lowest-index) device and
+    runs one pairing check there: the JAX verifier's cross-shard reduction.
+    Everything else (packing, H1, the exact pass, a narrow or uneven batch)
+    runs on that first device, as the JAX verifier's _pin_fallback pins
+    it."""
 
     kind = "device"        # metrics label, as the JAX verifier's
 
@@ -484,13 +523,24 @@ class BatchBeaconVerifier:
     # a larger one bisects with RLC halves (every level a power of two).
     _BISECT_MIN = 64
 
+    # Below this batch width a split leaves devices idle for nothing.
+    SHARD_MIN_PAD = 512
+
     def __init__(self, scheme: Scheme, public_key_bytes: bytes,
-                 pad_to=None, device=None, h2f_device=None):
+                 pad_to=None, device=None, h2f_device=None, sharding=None,
+                 devices=None):
         self.scheme = scheme
         self.g2sig = scheme.sig_group is GroupG2
         self.pad_to = pad_to
         self.h2f_device = h2f_device
-        self.device = resolve_device(device)
+        if sharding is None and devices is not None:
+            sharding = build_round_sharding(devices)
+        self.sharding = sharding
+        placed = sorted((resolve_device(d)
+                         for d in placement_devices(sharding)),
+                        key=lambda d: d.index or 0)
+        self.shard_devices = placed if len(placed) > 1 else []
+        self.device = placed[0] if placed else resolve_device(device)
         self.pub_point = scheme.key_group.from_bytes(public_key_bytes)
         if self.pub_point is None:
             raise ValueError("public key is the point at infinity")
@@ -638,13 +688,55 @@ class BatchBeaconVerifier:
         return DC._tmap(cut, enc)
 
     def _rlc_dispatch(self, enc, n, front=None):
-        """One RLC pass with fresh device randomizers; returns the verdict
-        as a device scalar."""
-        run = _rlc_run_g2sig if self.g2sig else _rlc_run_g1sig
+        """One RLC pass with fresh device randomizers, split over the
+        placement's devices where it can be; returns the verdict as a
+        device scalar."""
         enc = self._fields_enc(enc, front)
         _count_dispatch("rlc")
+        devs = self._split_devices(enc[1].shape[0])
+        if devs:
+            split = 4 if self.g2sig else 2
+            bits = _device_rlc_bits(_rlc_keys(), _rlc_mask(enc[1], n), split)
+            sub_ok, A, B = self._sharded_sums(enc, bits, devs)
+            check = _rlc_check_g2sig if self.g2sig else _rlc_check_g1sig
+            ok = check(A, B, self.pk_aff, self.fixed_aff)
+            return _fused_verdict(sub_ok, ok, n)
+        run = _rlc_run_g2sig if self.g2sig else _rlc_run_g1sig
         _, all_ok = run(*enc, n, self.pk_aff, self.fixed_aff)
         return all_ok
+
+    def _split_devices(self, pad: int):
+        """The devices an RLC pass of `pad` lanes splits over: every device
+        of a multi-device placement when the pad is wide enough and divides
+        evenly, else none (the pass runs on self.device)."""
+        devs = self.shard_devices
+        if len(devs) > 1 and pad >= self.SHARD_MIN_PAD \
+                and pad % len(devs) == 0:
+            return devs
+        return []
+
+    def _sharded_sums(self, enc, bits, devs):
+        """The RLC pass's stages up to the point sums, one contiguous shard
+        of the lanes (and of the coefficient planes `bits`, drawn for the
+        whole pad) on each device, then the partial sums brought to
+        self.device and added there.  Returns (sub_ok, A, B) on
+        self.device."""
+        sums = _rlc_sums_g2sig if self.g2sig else _rlc_sums_g1sig
+        curve = DC.G2 if self.g2sig else DC.G1
+        pad = enc[1].shape[0]
+        step = pad // len(devs)
+        home = lambda t: t.to(self.device)
+        oks, total = [], None
+        for i, dev in enumerate(devs):
+            lo, hi = i * step, (i + 1) * step
+            shard = DC._tmap(lambda t: t[lo:hi].to(dev), enc)
+            planes = tuple(b[:, lo:hi].to(dev) for b in bits)
+            sub_ok, A, B = sums(*shard, *planes)
+            oks.append(home(sub_ok))
+            part = DC._tmap(home, (A, B))
+            total = part if total is None else (
+                curve.add(total[0], part[0]), curve.add(total[1], part[1]))
+        return torch.cat(oks), total[0], total[1]
 
     def _rlc_ok(self, enc, n, front=None) -> bool:
         """One RLC check over an encoded range: True iff all n rounds

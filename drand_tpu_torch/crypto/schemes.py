@@ -13,13 +13,15 @@ mainnet vectors verify only with it.
 """
 
 import hashlib
+import secrets
 from dataclasses import dataclass
 from typing import Optional
 
 from .host import curve as C
 from .host import h2c as H2C
 from .host import serialize as S
-from .host.params import DST_G2
+from .host.pairing import pairing_check
+from .host.params import DST_G2, R
 
 DEFAULT_SCHEME_ID = "pedersen-bls-chained"
 UNCHAINED_SCHEME_ID = "pedersen-bls-unchained"
@@ -66,6 +68,52 @@ class Scheme:
         """Host signing (pure Python): the reference for the device path."""
         hp = self.sig_group.hash_to_curve(msg, self.dst)
         return self.sig_group.to_bytes(self.sig_group.curve.mul(hp, secret))
+
+    def verify(self, pub_point, msg: bytes, sig: bytes) -> bool:
+        """Verify one signature on the host (pure-Python pairing): the
+        verify service's host fallback.  False for a malformed signature
+        or a missing key."""
+        if pub_point is None:
+            return False
+        try:
+            sp = self.sig_group.from_bytes(sig)
+        except (ValueError, AssertionError):
+            return False
+        if sp is None:
+            return False
+        hp = self.sig_group.hash_to_curve(msg, self.dst)
+        if self.sig_group is GroupG2:
+            # pk on G1: e(pk, H(m)) == e(g1, sig)
+            return pairing_check([(pub_point, hp), (C.G1.neg(C.G1.gen), sp)])
+        # pk on G2: e(H(m), pk) == e(sig, g2)
+        return pairing_check([(hp, pub_point), (C.G1.neg(sp), C.G2.gen)])
+
+    def verify_beacon(self, pub_bytes_or_point, round_: int, prev_sig,
+                      sig: bytes) -> bool:
+        pub = pub_bytes_or_point
+        if isinstance(pub, (bytes, bytearray)):
+            try:
+                pub = self.key_group.from_bytes(bytes(pub))
+            except (ValueError, AssertionError):
+                return False
+        return self.verify(pub, self.digest_beacon(round_, prev_sig), sig)
+
+    def keypair(self, seed: Optional[bytes] = None):
+        """(secret scalar, public point); the key lives on key_group."""
+        if seed is None:
+            s = secrets.randbelow(R - 1) + 1
+        else:
+            s = int.from_bytes(hashlib.sha512(seed).digest(),
+                               "big") % (R - 1) + 1
+        return s, self.key_group.curve.mul(self.key_group.curve.gen, s)
+
+    def public_bytes(self, pub_point) -> bytes:
+        return self.key_group.to_bytes(pub_point)
+
+
+def randomness_from_signature(sig: bytes) -> bytes:
+    """randomness = SHA256(signature) (drand schemes.go:249-252)."""
+    return hashlib.sha256(sig).digest()
 
 
 _SCHEMES = {

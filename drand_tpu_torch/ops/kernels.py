@@ -53,6 +53,7 @@ repository root (git-ignored), keyed on a hash of the sources and flags.
 """
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -255,6 +256,19 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _launch(device, name: str, fn, *args):
+    """Launch a kernel on `device`: a ctypes launch runs on the runtime's
+    current device (device 0 in a fresh thread), so enter the tensors'
+    device for the call, and pass its current stream last.  (A CPU device
+    reaches here only through the host build of the sources, which tests
+    load in place of the card's library.)"""
+    device = torch.device(device)
+    enter = torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+    with enter:
+        _check(fn(*args, _stream(device)), name)
+
+
 def _ptrs(ts):
     """A host array of the tensors' data pointers (csrc/group.cuh Limbs):
     the kernels that read and write limb tensors themselves take one
@@ -323,10 +337,9 @@ def _group_launch(fn, kind, x, out, dev, name):
     """Launch K3 or K4: words in and out, the constant bundle, the program
     and its slot count, the schedule for the loop bits of |x|."""
     sched = schedule_tensor(kind, tuple(XLOOP_BITS), dev)
-    _check(fn(x.data_ptr(), out.data_ptr(), const_bundle(dev).data_ptr(),
-              program_tensor(kind, dev).data_ptr(), FP.compiled(kind)[1],
-              sched.data_ptr(), sched.numel(), x.shape[-1],
-              _stream(x.device)), name)
+    _launch(x.device, name, fn, x.data_ptr(), out.data_ptr(),
+            const_bundle(dev).data_ptr(), program_tensor(kind, dev).data_ptr(),
+            FP.compiled(kind)[1], sched.data_ptr(), sched.numel(), x.shape[-1])
 
 
 def group_layout(kind, width=None):
@@ -398,13 +411,12 @@ def pow_fixed(a, e: int):
     out = torch.empty_like(x)
     n = x.shape[0]
     if e == INV_EXP:
-        _check(_lib().drand_inv(x.data_ptr(), out.data_ptr(), n,
-                                _stream(a.device)), "pow_fixed")
+        _launch(a.device, "pow_fixed", _lib().drand_inv, x.data_ptr(),
+                out.data_ptr(), n)
     else:
         sched, ntab = pow_schedule_tensor(e, str(a.device))
-        _check(_lib().drand_pow(x.data_ptr(), out.data_ptr(),
-                                sched.data_ptr(), sched.numel(), ntab, n,
-                                _stream(a.device)), "pow_fixed")
+        _launch(a.device, "pow_fixed", _lib().drand_pow, x.data_ptr(),
+                out.data_ptr(), sched.data_ptr(), sched.numel(), ntab, n)
     _count("pow_fixed", e, n)
     return out.reshape(a.shape)
 
@@ -480,10 +492,10 @@ def scalar_mul_fixed(p, k: int):
     sched = schedule_tensor(kind, tuple(L.exp_bits(k)), dev)
     fn = _lib().drand_ladder_g2 if g2 else _lib().drand_ladder_g1
     name = "scalar_mul_fixed_g2" if g2 else "scalar_mul_fixed"
-    _check(fn(x.data_ptr(), out.data_ptr(), const_bundle(dev).data_ptr(),
-              program_tensor(kind, dev).data_ptr(), FP.compiled(kind)[1],
-              fixed_width(kind, n), sched.data_ptr(), sched.numel(), n,
-              _stream(x.device)), name)
+    _launch(x.device, name, fn, x.data_ptr(), out.data_ptr(),
+            const_bundle(dev).data_ptr(), program_tensor(kind, dev).data_ptr(),
+            FP.compiled(kind)[1], fixed_width(kind, n), sched.data_ptr(),
+            sched.numel(), n)
     _count(name, k, n)
     return _unflat(from_words(out, shape), g2)
 
@@ -525,10 +537,9 @@ def scalar_mul_bits(p, bits):
     fn = _lib().drand_ladder_var_g2 if g2 else _lib().drand_ladder_var_g1
     name = "scalar_mul_bits_g2" if g2 else "scalar_mul_bits"
     dev = str(x.device)
-    _check(fn(x.data_ptr(), out.data_ptr(), const_bundle(dev).data_ptr(),
-              program_tensor(kind, dev).data_ptr(), FP.compiled(kind)[1],
-              FP.WIDTH[kind], bt.data_ptr(), nbits, n, _stream(x.device)),
-           name)
+    _launch(x.device, name, fn, x.data_ptr(), out.data_ptr(),
+            const_bundle(dev).data_ptr(), program_tensor(kind, dev).data_ptr(),
+            FP.compiled(kind)[1], FP.WIDTH[kind], bt.data_ptr(), nbits, n)
     _count(name, nbits, n)
     return _unflat(from_words(out, shape), g2)
 
@@ -687,12 +698,10 @@ def pow_fixed_fp2(a, e: int):
     n = x.shape[-1]
     dev = str(x.device)
     sched = schedule_tensor("pow2", e, dev)
-    _check(_lib().drand_pow2(x.data_ptr(), out.data_ptr(),
-                             const_bundle(dev).data_ptr(),
-                             program_tensor("pow2", dev).data_ptr(),
-                             FP.compiled("pow2")[1], FP.WIDTH["pow2"],
-                             sched.data_ptr(), sched.numel(), n,
-                             _stream(x.device)), "pow_fixed_fp2")
+    _launch(x.device, "pow_fixed_fp2", _lib().drand_pow2, x.data_ptr(),
+            out.data_ptr(), const_bundle(dev).data_ptr(),
+            program_tensor("pow2", dev).data_ptr(), FP.compiled("pow2")[1],
+            FP.WIDTH["pow2"], sched.data_ptr(), sched.numel(), n)
     _count("pow_fixed_fp2", e, n)
     return tuple(from_words(out, shape))
 
@@ -812,11 +821,11 @@ def sum_rows(p):
     tickets = torch.zeros(rows, dtype=torch.int32, device=dev)
     fn = _lib().drand_sum_g2 if g2 else _lib().drand_sum_g1
     sdev = str(dev)
-    _check(fn(_ptrs(ins), _ptrs(outs), const_bundle(sdev).data_ptr(),
-              program_tensor(kind, sdev).data_ptr(), FP.compiled(kind)[1],
-              sum_width(kind, rows * tiles), work.data_ptr(),
-              part.data_ptr(),
-              tickets.data_ptr(), rows, lanes, _stream(dev)), name)
+    _launch(dev, name, fn, _ptrs(ins), _ptrs(outs),
+            const_bundle(sdev).data_ptr(),
+            program_tensor(kind, sdev).data_ptr(), FP.compiled(kind)[1],
+            sum_width(kind, rows * tiles), work.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), rows, lanes)
     _count(name, rows, lanes)
     return _unflat(outs, g2)
 
@@ -872,9 +881,10 @@ def scalar_mul_glv_mixed(pt, phi, p3, bits0, bits1):
     fn = _lib().drand_glv_g2 if g2 else _lib().drand_glv_g1
     name = "scalar_mul_glv_mixed_g2" if g2 else "scalar_mul_glv_mixed"
     sdev = str(dev)
-    _check(fn(_ptrs(tab), _ptrs(outs), const_bundle(sdev).data_ptr(),
-              program_tensor(kind, sdev).data_ptr(), FP.compiled(kind)[1],
-              FP.WIDTH[kind], bits.data_ptr(), nbits, n, _stream(dev)), name)
+    _launch(dev, name, fn, _ptrs(tab), _ptrs(outs),
+            const_bundle(sdev).data_ptr(),
+            program_tensor(kind, sdev).data_ptr(), FP.compiled(kind)[1],
+            FP.WIDTH[kind], bits.data_ptr(), nbits, n)
     _count(name, nbits, n)
     return _unflat([o.reshape(shape) for o in outs], g2)
 
@@ -963,9 +973,8 @@ def sha256_words(words, dyn_len=None, tail: bytes = b"", prefix: bytes = b""):
     fr = _frame_tensor(_int32(_sha_frame_words(
         SHA.frame(k, dyn_len, tail, prefix))), str(words.device))
     out = torch.empty((n, 8), dtype=torch.int64, device=words.device)
-    _check(_lib().drand_sha256(x.data_ptr(), k, fr.data_ptr(),
-                               out.data_ptr(), n, _stream(words.device)),
-           "sha256_words")
+    _launch(words.device, "sha256_words", _lib().drand_sha256, x.data_ptr(), k,
+            fr.data_ptr(), out.data_ptr(), n)
     _count("sha256_words", 4 * k if dyn_len is None else dyn_len, n)
     return out.reshape(words.shape[:-1] + (8,))
 
@@ -1000,9 +1009,8 @@ def expand_msg_xmd(msg_words, msg_len: int, dst: bytes, len_in_bytes: int):
                        str(msg_words.device))
     nw = len_in_bytes // 4
     out = torch.empty((n, nw), dtype=torch.int64, device=msg_words.device)
-    _check(_lib().drand_xmd(x.data_ptr(), k, fr.data_ptr(), out.data_ptr(),
-                            nw, n, _stream(msg_words.device)),
-           "expand_msg_xmd")
+    _launch(msg_words.device, "expand_msg_xmd", _lib().drand_xmd, x.data_ptr(),
+            k, fr.data_ptr(), out.data_ptr(), nw, n)
     _count("expand_msg_xmd", len_in_bytes, n)
     return out.reshape(msg_words.shape[:-1] + (nw,))
 
@@ -1049,8 +1057,8 @@ def hash_to_field(kind: str, msg, dst: bytes, count: int,
     outs = [torch.empty((n, L.NLIMB), dtype=L.DTYPE, device=dev)
             for _ in range(count)]
     name = "hash_to_field_fp2" if count == 4 else "hash_to_field"
-    _check(_lib().drand_h2f(H1_KINDS[kind], a.data_ptr(), a.shape[1],
-                            rnd.data_ptr(), has.data_ptr(), fr.data_ptr(),
-                            _ptrs(outs), count, n, _stream(dev)), name)
+    _launch(dev, name, _lib().drand_h2f, H1_KINDS[kind], a.data_ptr(),
+            a.shape[1], rnd.data_ptr(), has.data_ptr(), fr.data_ptr(),
+            _ptrs(outs), count, n)
     _count(name, kind, n)
     return outs
