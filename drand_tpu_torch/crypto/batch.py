@@ -72,7 +72,7 @@ from .host import tbls as HT
 from .host.params import P, G1_GEN, G2_GEN
 from .host.serialize import y_is_larger_fp, y_is_larger_fp2
 from .host.curve import G1, G2
-from .device_pool import build_round_sharding, placement_devices
+from .device_pool import placement_devices
 from .schemes import Scheme, GroupG1, GroupG2
 from ..ops import curve as DC
 from ..ops import h2c as DH
@@ -506,8 +506,8 @@ class BatchBeaconVerifier:
     True / False pin the device or the host front.
 
     Placement (crypto/device_pool.py): `sharding` (None, one device, or an
-    ordered list of devices) or `devices` (an explicit device group) pins
-    the verifier to its devices and wins over `device`.  On one device every
+    ordered list of devices) pins the verifier to its devices and wins over
+    `device`.  On one device every
     tensor lives there.  On several, an RLC pass at pad >= SHARD_MIN_PAD
     that divides evenly draws the coefficients for the whole pad, runs each
     contiguous shard's stages up to its partial point sums on its own
@@ -527,14 +527,11 @@ class BatchBeaconVerifier:
     SHARD_MIN_PAD = 512
 
     def __init__(self, scheme: Scheme, public_key_bytes: bytes,
-                 pad_to=None, device=None, h2f_device=None, sharding=None,
-                 devices=None):
+                 pad_to=None, device=None, h2f_device=None, sharding=None):
         self.scheme = scheme
         self.g2sig = scheme.sig_group is GroupG2
         self.pad_to = pad_to
         self.h2f_device = h2f_device
-        if sharding is None and devices is not None:
-            sharding = build_round_sharding(devices)
         self.sharding = sharding
         placed = sorted((resolve_device(d)
                          for d in placement_devices(sharding)),

@@ -22,11 +22,11 @@ and names:
     (max of DRAND_VERIFY_WATCHDOG_FLOOR, 120 s, and a multiple of the
     slot's own p99); a dispatch that blows it or raises marks the backend
     *suspect* and is retried once; a second strike fails the handle over
-    (to a healthy sibling device group, else to the host fallback,
-    `crypto.hostverify.HostBatchVerifier`), with every in-flight and
-    queued request REQUEUED, never failed.  A rate-limited canary probe
-    re-promotes the device backend: `healthy -> suspect -> degraded ->
-    probing -> healthy`.
+    (to a healthy sibling device group, else to the caller's host
+    fallback, e.g. `crypto.hostverify.HostBatchVerifier`), with every
+    in-flight and queued request REQUEUED, never failed.  A rate-limited
+    canary probe re-promotes the device backend: `healthy -> suspect ->
+    degraded -> probing -> healthy`.
   * **The device pool.**  `crypto/device_pool.py` partitions the CUDA
     devices into groups; every handle gets a sticky least-loaded group and
     each group runs its own scheduler/packer stream.  Batch submissions at
@@ -55,9 +55,15 @@ out a host handle when jax is absent.  The port never carries on quietly
 on the CPU: to run device handles on the CPU (the plain PyTorch versions
 of the kernels), build the service with
 ``pool=DevicePool(devices=[torch.device("cpu")])``.  ``device=False``
-still gives the host handle, as in the reference.  The supervised failover
-to the host after two strikes is the reference's failure domain, and is
-kept.
+still gives the host handle, as in the reference.
+
+A second: a device handle gets no host fallback of its own.  The
+reference gives every device handle a lazy `HostBatchVerifier`; here the
+supervised failover to the host after two strikes runs only where the
+caller passes ``fallback=`` (the daemon's wiring may opt in).  Without
+one, a device error that no healthy sibling group can take (a failed
+build, a failed launch, a sticky CUDA error) reaches the callers'
+futures, so the device's work never moves quietly to host pairing.
 
 This module imports no torch at module scope: device backends are built
 lazily on the first device handle.
@@ -465,8 +471,8 @@ class VerifyService:
         `HostBatchVerifier` fallback behind the same API; `device=True` on
         a pool with no device raises (see the module doc); `backend=`
         injects a custom verifier (tests) and `fallback=` its failover
-        target.  Device handles get a lazy `HostBatchVerifier` failover
-        target automatically.
+        target.  A device handle fails over to the host only through
+        `fallback=` (see the module doc).
 
         The handle is assigned a DEVICE GROUP from the service's pool
         (sticky least-loaded — chain→device affinity) and dispatches on
@@ -545,14 +551,11 @@ class VerifyService:
                 from .hostverify import HostBatchVerifier
                 backend = HostBatchVerifier(scheme, pk)
         h = VerifyHandle(self, key, scheme, backend)
-        if fallback is not None:
-            fallback_factory = lambda fb=fallback: fb  # noqa: E731
-        elif kind == "device":
-            def fallback_factory(s=scheme, p=pk):
-                from .hostverify import HostBatchVerifier
-                return HostBatchVerifier(s, p)
-        else:
-            fallback_factory = None     # host handles have nowhere to go
+        # a device handle fails over to the host only where the caller
+        # passes `fallback=`: without one its device errors reach the
+        # callers' futures (host handles have nowhere to go)
+        fallback_factory = None if fallback is None \
+            else lambda fb=fallback: fb  # noqa: E731
         slot = _BackendSlot(key, f"{scheme.id}:{pk[:4].hex()}", backend,
                             fallback_factory, pad=pad, depth=depth,
                             scheme=scheme, pk=pk, kind=kind,
@@ -1402,6 +1405,8 @@ class VerifyService:
             except BaseException as e2:
                 self._group_fault(slot)
                 if not self._migrate(slot):
+                    if not slot.can_failover:
+                        raise       # nowhere to go: the callers see it
                     self._degrade(slot, e2)
                 self._requeue(batch.requests)
                 raise _Requeued()
@@ -1647,13 +1652,21 @@ class VerifyService:
                 if first_strike:
                     slot.state = STATE_SUSPECT
             self._set_state_gauge(slot)
+            err = DeviceFailure(
+                "device dispatch blew its watchdog deadline twice")
             if not first_strike:
                 # second strike: the group is the failure domain — try a
                 # healthy sibling before degrading to host
                 self._group_fault(slot)
                 if not self._migrate(slot):
-                    self._degrade(slot, DeviceFailure(
-                        "device dispatch blew its watchdog deadline twice"))
+                    if not slot.can_failover:
+                        # no fallback: the callers see the device failure
+                        for r in batch.requests:
+                            if not r.future.done():
+                                r.future.set_exception(err)
+                        self._ensure_scheduler(batch.stream)
+                        return
+                    self._degrade(slot, err)
             # requeued, not failed — on the device once (the suspect
             # retry), on the sibling/fallback after the second strike
             self._requeue(batch.requests)

@@ -114,11 +114,11 @@ def test_placement_pins_the_verifier_to_its_devices():
     pk = sch.public_bytes(pub)
     one = B.BatchBeaconVerifier(sch, pk, sharding=CPU)
     assert one.device == CPU and one.shard_devices == []
-    two = B.BatchBeaconVerifier(sch, pk, devices=[CPU, CPU])
+    two = B.BatchBeaconVerifier(sch, pk, sharding=[CPU, CPU])
     assert two.sharding == [CPU, CPU] and two.shard_devices == [CPU, CPU]
     assert two._split_devices(512) == [CPU, CPU]
     assert two._split_devices(256) == []    # below SHARD_MIN_PAD
-    assert B.BatchBeaconVerifier(sch, pk, devices=[CPU] * 3) \
+    assert B.BatchBeaconVerifier(sch, pk, sharding=[CPU] * 3) \
         ._split_devices(512) == []          # 512 does not split in three
     with pytest.raises(RuntimeError):       # a CUDA placement needs a card
         B.BatchBeaconVerifier(sch, pk, sharding=torch.device("cuda", 0))
@@ -134,7 +134,7 @@ def test_two_device_rlc_pass_equals_one_device(monkeypatch):
     n, pad = 24, 512
     rounds = list(range(1, n + 1))
     sigs = [sch.sign(sec, sch.digest_beacon(r)) for r in rounds]
-    two = B.BatchBeaconVerifier(sch, pk, pad_to=pad, devices=[CPU, CPU])
+    two = B.BatchBeaconVerifier(sch, pk, pad_to=pad, sharding=[CPU, CPU])
     packed = two.pack_chunk(rounds, sigs)
     enc = two._fields_enc(packed[1], packed[3])
     bits = B._device_rlc_bits(B._rlc_keys(), B._rlc_mask(enc[1], n))

@@ -14,7 +14,8 @@ service inside tests/chaos.py, so they wait for the daemon wiring.
 Then: one seeded script of submissions through the reference service and
 the port's, with recording stub backends, must give the same dispatches
 (width, lane, order), results and failover state walk; a device handle on a
-pool with no device raises; pack_chunk launches no kernel; the metrics work
+pool with no device raises; a device handle without `fallback=` hands its
+device errors to its callers; pack_chunk launches no kernel; the metrics work
 without prometheus_client; the kernel wrappers enter the tensor's device; a
 fresh interpreter that runs a CPU device handle imports no jax.
 """
@@ -386,6 +387,47 @@ def test_device_handle_on_a_deviceless_pool_raises():
     with pytest.raises(RuntimeError, match=r"DevicePool\(devices="):
         svc.handle(scheme, pk, device=True)
     assert svc.handle(scheme, pk, device=False).kind == "host"
+    svc.stop()
+
+
+@pytest.mark.parametrize("n_groups", [1, 2])
+def test_device_handle_without_fallback_surfaces_the_device_error(
+        monkeypatch, n_groups):
+    """A device handle gets no host fallback unless the caller passes
+    `fallback=`: a dispatch fault on every group of the pool (after the
+    sibling migration, where there is a sibling) reaches the caller's
+    future, the slot never degrades and no HostBatchVerifier is built."""
+    from drand_tpu_torch.crypto import hostverify
+    built = []
+
+    class Spy(hostverify.HostBatchVerifier):
+        def __init__(self, *a, **k):
+            built.append(a)
+            super().__init__(*a, **k)
+
+    def fault(self, *a, **k):
+        raise RuntimeError("injected device fault")
+
+    monkeypatch.setattr(hostverify, "HostBatchVerifier", Spy)
+    monkeypatch.setattr(B.BatchBeaconVerifier, "dispatch_packed", fault)
+    monkeypatch.setattr(B.BatchBeaconVerifier, "verify_batch", fault)
+    svc = VS.VerifyService(clock=FakeClock(0.0), pad=16, pipeline_depth=1,
+                           background_window=0.0,
+                           pool=DP.DevicePool(n_groups=n_groups,
+                                              devices=[CPU] * n_groups))
+    scheme = S.scheme_from_name("bls-unchained-on-g1")
+    _, pub = scheme.keypair(seed=b"no-fallback")
+    h = svc.handle(scheme, scheme.public_bytes(pub), device=True)
+    assert h.kind == "device"
+    fut = h.submit([1, 2, 3], [b"\x00" * 48] * 3, lane=VS.LANE_LIVE)
+    with pytest.raises(RuntimeError, match="injected device fault"):
+        fut.result(60)
+    slot = svc._slots[h.key]
+    assert not slot.can_failover and slot.fallback is None
+    assert slot.state != VS.STATE_DEGRADED
+    st = svc.stats()
+    assert st["failovers"] == 0 and st["migrations"] == n_groups - 1
+    assert built == []
     svc.stop()
 
 
