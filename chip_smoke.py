@@ -70,6 +70,31 @@ hash_to_field) on the same inputs, whose verdicts must be equal.
                        host oracle (hashlib + the host hash_to_field), with
                        its SHA-256 and xmd entries.
 
+The device DKG (``drand_tpu_torch/crypto/dkg_device.py`` and the state
+machine ``crypto/dkg.py``), at bench config 8's committee scale, 1024
+dealers of 32 coefficients, on G2 keys (``bls-unchained-on-g1``,
+``dkg_g2keys_committee``) and G1 keys (``pedersen-bls-chained``,
+``dkg_g1keys_committee``), from a host fixture:
+
+  verify_shares + pin  one holder's check of all dealers (20 wrong-index
+                       shares, 20 tampered coefficients) and the reshare
+                       constant-term pin (10 wrong constant terms), at
+                       most 4 dispatches, every verdict as constructed;
+  prime, combine       ``prime_public_shares`` at 1024, the weighted
+                       combine over 32 dealers and the plain one over all;
+  partials             ``BatchPartialVerifier`` at 1024 signers of an
+                       8-coefficient polynomial (primed in one dispatch),
+                       one round's 1024 partials with one forged;
+
+each against a host oracle on 64 dealers (host Horner, PubPoly.eval,
+host combines);
+
+  dkg_ceremony         an 8-node DKG at t = 5 through ``DistKeyGenerator``
+                       with every seam on the card: a transit-corrupted
+                       deal justified, a bundle changed after signing
+                       excluded, one key; then a reshare whose key-change
+                       attempt the pin rejects, the key kept byte for byte.
+
 Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
 timed; K3 and K4 (a warp a pairing lane) also at tail widths with a zero
@@ -773,6 +798,405 @@ def service_phases(ctx):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dkg phase: committee-scale fixtures on the host (independent of the
+# port's device code) and the phase itself
+# ---------------------------------------------------------------------------
+
+DKG_N, DKG_T, DKG_QUAL = 1024, 32, 32   # bench.py:99-106 config 8
+DKG_HOLDER = 17
+PARTIALS_COEFFS = 8                     # bench.py:807, config 8's polynomial
+# a League of Entropy group has 16 nodes at t = 9; the ceremony's wall is
+# host Schnorr, DH and point decoding (n^2: 93 s at 16 on the H100's host),
+# so the phase runs 8 nodes at drand's t = n/2 + 1
+CEREMONY_N, CEREMONY_T = 8, 5
+
+
+def _batch_inv(f, vals):
+    """Montgomery's trick: the inverses of nonzero field elements with one
+    field inversion (host field ops `f` of a host curve)."""
+    pre, acc = [], f.one
+    for v in vals:
+        pre.append(acc)
+        acc = f.mul(acc, v)
+    ia = f.inv(acc)
+    out = [None] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        out[i] = f.mul(ia, pre[i])
+        ia = f.mul(ia, vals[i])
+    return out
+
+
+def batch_add(hc, ps, qs):
+    """ps[i] + qs[i] for finite affine host points with distinct x (the
+    fixtures' sums never meet P == +-Q; an equal x raises): affine adds
+    sharing one inversion."""
+    f = hc.f
+    dx = [f.sub(q[0], p[0]) for p, q in zip(ps, qs)]
+    if any(f.is_zero(d) for d in dx):
+        raise ValueError("batch_add met P == +-Q")
+    out = []
+    for p, q, i in zip(ps, qs, _batch_inv(f, dx)):
+        lam = f.mul(f.sub(q[1], p[1]), i)
+        x3 = f.sub(f.sub(f.sqr(lam), p[0]), q[0])
+        out.append((x3, f.sub(f.mul(lam, f.sub(p[0], x3)), p[1])))
+    return out
+
+
+def batch_mul(hc, base, ks, R):
+    """k_i * base for many scalars: one double-and-add over all lanes, the
+    table 2^i * base by host doublings, each bit's adds one batch_add."""
+    ks = [k % R for k in ks]
+    table = [base]
+    for _ in range(max(ks, default=0).bit_length()):
+        table.append(hc.add(table[-1], table[-1]))
+    acc = [None] * len(ks)
+    for i, t in enumerate(table):
+        idx = [l for l, k in enumerate(ks) if k >> i & 1]
+        live = [l for l in idx if acc[l] is not None]
+        for l in idx:
+            if acc[l] is None:
+                acc[l] = t
+        for l, s in zip(live, batch_add(hc, [acc[l] for l in live],
+                                        [t] * len(live))):
+            acc[l] = s
+    return acc
+
+
+def host_horner(hc, commits, x):
+    """sum_j x^j C_j by host Horner (host mul by the small x, host add):
+    PubPoly.eval's value at index x - 1 without its full-width powers."""
+    acc = commits[-1]
+    for c in reversed(commits[:-1]):
+        acc = hc.add(hc.mul(acc, x), c)
+    return acc
+
+
+def dkg_phases(ctx):
+    """The dkg phase (module doc): (a) committee scale on both key groups,
+    (b) a whole ceremony and a reshare through DistKeyGenerator.  Returns
+    {"paths": {path: (launches, shapes)}, "walls": {...}}; the paths'
+    shapes join phase 4."""
+    torch, K, drive = ctx["torch"], ctx["K"], ctx["drive"]
+    schemes, HT, HS, R = ctx["schemes"], ctx["HT"], ctx["HS"], ctx["R"]
+    name, smi_line, rng = ctx["name"], ctx["smi_line"], ctx["rng"]
+    n, t, nq = ctx.get("dkg_n", DKG_N), ctx.get("dkg_t", DKG_T), \
+        ctx.get("dkg_qual", DKG_QUAL)
+    from drand_tpu_torch.crypto import dkg as D
+    from drand_tpu_torch.crypto import dkg_device as DD
+    from drand_tpu_torch.crypto import partials as PP
+    from drand_tpu_torch.crypto import schnorr
+
+    def rnd():
+        return int.from_bytes(rng.bytes(32), "big") % (R - 1) + 1
+
+    def k6_launches(launches):
+        return {k: v for k, v in launches.items()
+                if k.startswith("scalar_mul_bits")}
+
+    paths, walls = {}, {}
+
+    def run(path, fn):
+        """drive(fn) plus dkg_device's dispatch count; the path's launches
+        and shapes kept for phase 4."""
+        before = DD.dispatch_count()
+        out, wall, launches, shapes, _ = drive(fn)
+        paths[path] = (launches, shapes)
+        walls[path] = wall
+        return out, wall, DD.dispatch_count() - before, launches
+
+    def committee(sid, tag):
+        sch = schemes.scheme_from_name(sid)
+        grp = sch.key_group
+        hc = grp.curve
+        x = DKG_HOLDER + 1
+        t0 = time.perf_counter()
+        # the dealers' polynomials: a reshare's, so c_{d,0} = old(d), the
+        # old polynomial's value at x = d + 1; c_{d,j} random for the first
+        # nq dealers, a_j + d b_j mod r after them (C_{d,j} = C_{d-1,j} +
+        # B_j by batched host adds)
+        old = [rnd() for _ in range(t)]
+        old_at = [sum(c * pow(d + 1, j, R) for j, c in enumerate(old)) % R
+                  for d in range(n)]
+        a = [rnd() for _ in range(t)]
+        b = [rnd() for _ in range(t)]
+        coef = [[old_at[d]] + ([rnd() for _ in range(t - 1)] if d < nq else
+                               [(a[j] + d * b[j]) % R for j in range(1, t)])
+                for d in range(n)]
+        first = [coef[d][j] for d in range(nq) for j in range(1, t)]
+        lin0 = [coef[nq][j] for j in range(1, t)]
+        pts = batch_mul(hc, hc.gen, old_at + first + lin0 + b[1:] + old, R)
+        c0, pts = pts[:n], pts[n:]
+        rand_c, pts = pts[:len(first)], pts[len(first):]
+        row, pts = pts[:t - 1], pts[t - 1:]
+        bj, old_c = pts[:t - 1], pts[t - 1:]
+        commits = [[c0[d]] + rand_c[d * (t - 1):(d + 1) * (t - 1)]
+                   for d in range(nq)]
+        commits.append([c0[nq]] + row)
+        for d in range(nq + 1, n):
+            row = batch_add(hc, row, bj)
+            commits.append([c0[d]] + row)
+        shares = [sum(c * pow(x, j, R) for j, c in enumerate(coef[d])) % R
+                  for d in range(n)]
+        # 20 wrong-index shares, 20 dealers with a tampered non-constant
+        # coefficient (tests/test_committee.py:115-157), 10 wrong claimed
+        # constant terms for the pin
+        picks = rng.permutation(n).tolist()
+        wrong_idx, tampered = sorted(picks[:20]), sorted(picks[20:40])
+        mismatched = sorted(picks[40:50])
+        bad_commits = [list(c) for c in commits]
+        for d in wrong_idx:
+            shares[d] = sum(c * pow(x + 1, j, R)
+                            for j, c in enumerate(coef[d])) % R
+        for d in tampered:
+            j = int(rng.integers(1, t))
+            bad_commits[d][j] = hc.add(bad_commits[d][j], hc.gen)
+        claimed = [c[0] for c in commits]
+        for d in mismatched:
+            claimed[d] = hc.add(claimed[d], hc.gen)
+        fixture_s = time.perf_counter() - t0
+
+        want_vs = [d not in wrong_idx and d not in tampered for d in range(n)]
+        want_ct = [d not in mismatched for d in range(n)]
+
+        def check_path():
+            return (DD.verify_shares(grp, bad_commits, DKG_HOLDER, shares),
+                    DD.constant_terms_match(grp, old_c, range(n), claimed))
+
+        (vs, ct), wall, disp, launches = run(f"dkg_{tag}_verify", check_path)
+        rec = {"verify_shares_and_pin_wall_s": wall, "dispatches": disp,
+               "k6_launches": k6_launches(launches),
+               "rejected": [d for d in range(n) if not vs[d]],
+               "pinned": [d for d in range(n) if not ct[d]]}
+        ok = vs == want_vs and ct == want_ct and disp <= 4
+
+        pub_old = HT.PubPoly(grp, list(old_c))
+        primed, wall, disp_p, launches = run(
+            f"dkg_{tag}_prime", lambda: DD.prime_public_shares(pub_old, n))
+        rec.update(prime_wall_s=wall, prime_dispatches=disp_p,
+                   prime_k6_launches=k6_launches(launches))
+        ok &= disp_p == 1 and len(primed) == n
+
+        # the host oracle on 64 dealers, every tampered and pinned one
+        rest = [d for d in picks[50:] if d not in wrong_idx + tampered]
+        sample = sorted(set(wrong_idx + tampered + mismatched
+                            + rest[:64 - 50]))
+        t0 = time.perf_counter()
+        bad_oracle = []
+        for d in sample:
+            host_vs = hc.mul(hc.gen, shares[d]) == host_horner(
+                hc, bad_commits[d], x)
+            old_d = host_horner(hc, old_c, d + 1)
+            if host_vs != vs[d] or (old_d == claimed[d]) != ct[d] \
+                    or primed[d] != old_d:
+                bad_oracle.append(d)
+        # host_horner against PubPoly.eval itself on two dealers
+        for d in sample[:2]:
+            if HT.PubPoly(grp, list(old_c)).eval(d) != \
+                    host_horner(hc, old_c, d + 1):
+                bad_oracle.append(("pubpoly_eval", d))
+        oracle_s = time.perf_counter() - t0
+        ok &= not bad_oracle
+
+        # finalization: weighted over the first nq dealers (a reshare's
+        # old threshold; every old(d) interpolates back to old[0]) and
+        # plain over all n (a fresh DKG's sum)
+        qual = list(range(nq))
+        lams = [HT._lagrange_coeff(qual, d) for d in qual]
+        (cw, cs), wall, disp_c, launches = run(
+            f"dkg_{tag}_combine", lambda: (
+                DD.combine_commits(grp, commits[:nq], lams),
+                DD.combine_commits(grp, commits)))
+        t0 = time.perf_counter()
+        want_w = batch_mul(hc, hc.gen, [
+            sum(lams[i] * coef[d][j] for i, d in enumerate(qual)) % R
+            for j in range(t)], R)
+        want_s = batch_mul(hc, hc.gen, [sum(coef[d][j] for d in range(n)) % R
+                                        for j in range(t)], R)
+        host_w = {}
+        for j in (0, 1, t // 2, t - 1):
+            acc = None
+            for i, d in enumerate(qual):
+                acc = hc.add(acc, hc.mul(commits[d][j], lams[i]))
+            host_w[j] = acc
+        host_s = {}
+        for j in (0, t - 1):
+            acc = None
+            for d in range(n):
+                acc = hc.add(acc, commits[d][j])
+            host_s[j] = acc
+        combine_oracle_s = time.perf_counter() - t0
+        comb_ok = (cw == want_w and cs == want_s and cw[0] == old_c[0]
+                   and all(cw[j] == v for j, v in host_w.items())
+                   and all(cs[j] == v for j, v in host_s.items()))
+        ok &= comb_ok and disp_c == 2
+        rec.update(combine_wall_s=wall, combine_dispatches=disp_c,
+                   combine_k6_launches=k6_launches(launches),
+                   combine_equal_to_construction_and_host=comb_ok,
+                   weighted_keeps_old_key=cw[0] == old_c[0])
+
+        # the committee's partials check: config 8's polynomial, one
+        # round's n partials, one forged
+        t0 = time.perf_counter()
+        sg = sch.sig_group
+        poly = HT.PriPoly([rnd() for _ in range(PARTIALS_COEFFS)])
+        pp = HT.PubPoly(grp, batch_mul(hc, hc.gen, poly.coeffs, R))
+        sks = [poly.eval(i).value for i in range(n)]
+        msg = sch.digest_beacon(1, rng.bytes(96) if sch.chained else None)
+        hm = sg.hash_to_curve(msg, sch.dst)
+        forged = int(rng.integers(n))
+        sigs = batch_mul(sg.curve, hm, [s + (d == forged)
+                                        for d, s in enumerate(sks)], R)
+        prow = [d.to_bytes(2, "big") + sg.to_bytes(s)
+                for d, s in enumerate(sigs)]
+        fixture_s += time.perf_counter() - t0
+        before = DD.dispatch_count()
+        bv, setup_wall, launches, shapes, _ = drive(
+            lambda: PP.BatchPartialVerifier(sch, pp, n))
+        paths[f"dkg_{tag}_partials_setup"] = (launches, shapes)
+        setup_disp = DD.dispatch_count() - before
+        fresh = HT.PubPoly(grp, list(pp.commits))
+        prime_ok = setup_disp == 1 and all(
+            bv.pub_points[d] == fresh.eval(d) for d in sample[:8])
+        mask, vwall, launches, shapes, passes = drive(
+            lambda: bv.verify_partials([msg], [prow]))
+        paths[f"dkg_{tag}_partials"] = (launches, shapes)
+        want_mask = np.ones((1, n), dtype=bool)
+        want_mask[0, forged] = False
+        part_ok = mask.shape == want_mask.shape and bool(
+            (mask == want_mask).all())
+        ok &= prime_ok and part_ok
+        rec.update(partials={
+            "signers": n, "coefficients": PARTIALS_COEFFS,
+            "forged_slot": forged, "setup_wall_s": setup_wall,
+            "setup_dispatches": setup_disp, "primed_equal_host": prime_ok,
+            "verify_wall_s": vwall, "passes": passes,
+            "mask_as_constructed": part_ok})
+        emit({"phase": f"dkg_{tag}_committee", "scheme": sid,
+              "key_group": grp.name, "dealers": n, "coefficients": t,
+              "holder": DKG_HOLDER, "qual_weighted": nq, **rec,
+              "verdicts_as_constructed": vs == want_vs and ct == want_ct,
+              "oracle_sample": len(sample), "oracle_disagrees": bad_oracle,
+              "fixture_s": fixture_s, "oracle_s": oracle_s,
+              "combine_oracle_s": combine_oracle_s, "device": name,
+              "nvidia_smi": smi_line})
+        if not ok:
+            fail(f"dkg {tag} committee: verdicts {vs == want_vs} / "
+                 f"{ct == want_ct}, dispatches {disp} / {disp_p} / "
+                 f"{disp_c} / {setup_disp}, oracle {bad_oracle}, combine "
+                 f"{comb_ok}, primed {prime_ok}, partials {part_ok}")
+
+    committee(schemes.SHORT_SIG_SCHEME_ID, "g2keys")
+    committee(schemes.DEFAULT_SCHEME_ID, "g1keys")
+
+    # (b) one whole ceremony and a reshare on pedersen-bls-chained (G1
+    # keys), every seam on the card: MIN_N at the smallest seam's lanes
+    # (the reshare's weighted combine over old-threshold dealers)
+    cn, ct_ = ctx.get("ceremony_n", CEREMONY_N), \
+        ctx.get("ceremony_t", CEREMONY_T)
+    sch = schemes.scheme_from_name(schemes.DEFAULT_SCHEME_ID)
+    grp = sch.key_group
+    hc = grp.curve
+    secs = [rnd() for _ in range(cn)]
+    nodes = [D.DkgNode(i, grp.to_bytes(hc.mul(hc.gen, s)))
+             for i, s in enumerate(secs)]
+    saved_min = DD.MIN_N
+    DD.MIN_N = ct_
+    try:
+        def fresh():
+            gens = [D.DistKeyGenerator(D.DkgConfig(
+                scheme=sch, longterm=secs[i], nonce=b"f" * 32,
+                new_nodes=nodes, threshold=ct_)) for i in range(cn)]
+            deals = [g.generate_deals() for g in gens]
+            # a transit-corrupted deal to holder 0 in dealer 3's (re-signed)
+            # bundle: holder 0 complains, dealer 3 justifies; dealer 5's
+            # commitment changed after signing: its signature fails
+            deals[3].deals = [dl if dl.share_index != 0 else
+                              D.Deal(0, bytes(64)) for dl in deals[3].deals]
+            deals[3].signature = schnorr.sign(
+                grp, secs[3], deals[3].hash(b"f" * 32))
+            deals[5].commits[1] = deals[5].commits[0]
+            resps = [g.process_deal_bundles(deals) for g in gens]
+            got = [g.process_response_bundles(resps) for g in gens]
+            justs = [j for _, j in got if j is not None]
+            outs = [g.process_justification_bundles(justs) for g in gens]
+            return resps, got, justs, outs
+
+        (resps, got, justs, outs), wall_f, disp_f, launches_f = run(
+            "dkg_ceremony", fresh)
+        st = [{r.dealer_index: r.status for r in rb.responses}
+              for rb in resps]
+        complaints = {i: sorted(d for d, s in st[i].items() if s)
+                      for i in range(cn)}
+        want_c = {i: [3, 5] if i == 0 else [5] for i in range(cn)}
+        pk = outs[0].commits[0]
+
+        def recovers(outs_, k):
+            """k shares interpolate to a secret whose public key is pk,
+            twice (the first and the last k holders)."""
+            ok_ = True
+            for sub in (outs_[:k], outs_[-k:]):
+                idx = [o.share.index for o in sub]
+                s = sum(HT._lagrange_coeff(idx, o.share.index) * o.share.value
+                        for o in sub) % R
+                ok_ &= grp.to_bytes(hc.mul(hc.gen, s)) == pk
+            return ok_
+
+        fresh_ok = (complaints == want_c and all(o is None for o, _ in got)
+                    and [j.dealer_index for j in justs] == [3]
+                    and all(o.commits == outs[0].commits for o in outs)
+                    and all(o.qual == [d for d in range(cn) if d != 5]
+                            for o in outs)
+                    and recovers(outs, ct_))
+
+        def reshare():
+            gens = [D.DistKeyGenerator(D.DkgConfig(
+                scheme=sch, longterm=secs[i], nonce=b"r" * 32,
+                new_nodes=nodes, threshold=ct_, old_nodes=nodes,
+                old_threshold=ct_, share=outs[i].share,
+                public_coeffs=list(outs[0].commits))) for i in range(cn)]
+            deals = [g.generate_deals() for g in gens]
+            # dealer 2 deals a polynomial whose constant term is not its
+            # old share: an attempt to change the collective key
+            evil = D.DistKeyGenerator(D.DkgConfig(
+                scheme=sch, longterm=secs[2], nonce=b"r" * 32,
+                new_nodes=nodes, threshold=ct_, old_nodes=nodes,
+                old_threshold=ct_, share=HT.PriShare(2, 123456789),
+                public_coeffs=list(outs[0].commits)))
+            deals[2] = evil.generate_deals()
+            resps = [g.process_deal_bundles(deals) for g in gens]
+            routs = [g.process_response_bundles(resps)[0] for g in gens]
+            return gens, routs
+
+        (rgens, routs), wall_r, disp_r, launches_r = run("dkg_reshare",
+                                                         reshare)
+        reshare_ok = (all(2 not in g._valid_dealers for g in rgens)
+                      and all(o is not None and o.commits[0] == pk
+                              for o in routs)
+                      and all(o.commits == routs[0].commits for o in routs)
+                      and recovers(routs, ct_))
+    finally:
+        DD.MIN_N = saved_min
+    # every seam on the card: fresh, a share check and a plain combine a
+    # node; reshare, a pin, a share check and a weighted combine a node
+    seams_ok = disp_f == 2 * cn and disp_r == 3 * cn
+    emit({"phase": "dkg_ceremony", "scheme": sch.id, "nodes": cn,
+          "threshold": ct_, "min_n": ct_, "fresh_wall_s": wall_f,
+          "reshare_wall_s": wall_r, "fresh_dispatches": disp_f,
+          "reshare_dispatches": disp_r, "complaints": complaints,
+          "justified_dealers": [j.dealer_index for j in justs],
+          "qual": outs[0].qual, "fresh_ok": fresh_ok,
+          "key_change_rejected_and_key_kept": reshare_ok,
+          "k6_launches": {"fresh": k6_launches(launches_f),
+                          "reshare": k6_launches(launches_r)},
+          "device": name, "nvidia_smi": smi_line})
+    if not (fresh_ok and reshare_ok and seams_ok):
+        fail(f"dkg ceremony: fresh {fresh_ok} (complaints {complaints}), "
+             f"reshare {reshare_ok}, dispatches {disp_f} / {disp_r} (want "
+             f"{2 * cn} / {3 * cn})")
+    return {"paths": paths, "walls": walls}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=ROUNDS)
@@ -1415,6 +1839,13 @@ def main():
              smi_line=smi_line))
     assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
 
+    # -- phase dkg: the device DKG at committee scale, and a ceremony -------
+    dkg = dkg_phases(dict(torch=torch, K=K, drive=drive, schemes=schemes,
+                          HT=HT, HS=HS, R=R, name=name, smi_line=smi_line,
+                          rng=rng))
+    dkg_keys = {sh for _, shapes in dkg["paths"].values() for sh in shapes}
+    assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
+
     # -- phase 4: each kernel against its plain version at the path's shapes
     def timed(fn, reps):
         fn()
@@ -1778,6 +2209,7 @@ def main():
            "g2_exact_pass": (g2x_launches, g2x_shapes)}
     for tag in ("g1", "g2"):
         ran.update(thr[tag]["paths"])
+    ran.update(dkg["paths"])
 
     # Every other shape a path launched (the threshold paths' widths, and
     # all of K6) gets inputs made here: random field elements, the points
@@ -1799,7 +2231,7 @@ def main():
     special = {False: DC._tmap(lambda c: c.roll(3, 0), pj),
                True: DC._tmap(lambda c: c.roll(3, 0), pj2)}
 
-    def k6_inputs(g2, nbits, lanes):
+    def k6_inputs(g2, nbits, lanes, horner=False):
         """K6's inputs as its callers build them.  256 bits (signing):
         one random 256-bit scalar a lane, lanes 3-5 members with the
         scalars r and r + 2 (the last step's add meets P == -Q and P == Q)
@@ -1808,14 +2240,20 @@ def main():
         scalars' signed GLV digits, the points' phi / psi lanes negated
         where a digit is negative, one scalar 0.  Every warp mixes 0 and 1
         bits, and infinite and finite points (lanes 0-2: infinity, the
-        generator, a point outside the group)."""
+        generator, a point outside the group).  horner (the dkg phase's
+        shapes): from lane 6 on, each point the complete add of two of
+        them, a Jacobian point with Z != 1 as a Horner accumulator is."""
         curve = DC.G2 if g2 else DC.G1
         if nbits in (256, 16):
             ks = [random.getrandbits(nbits) for _ in range(lanes)]
             edge = [R, R + 2, 0] if nbits == 256 else [0, (1 << 16) - 1]
             ks[3:3 + len(edge)] = edge
-            return (spread(special[g2], lanes),
-                    torch.from_numpy(DC.msb_bits(ks, nbits)).to(dev))
+            pts = spread(special[g2], lanes)
+            if horner:
+                acc = curve.add(pts, DC._tmap(lambda c: c.roll(1, 0), pts))
+                pts = curve.select(torch.arange(lanes, device=dev) >= 6,
+                                   acc, pts)
+            return (pts, torch.from_numpy(DC.msb_bits(ks, nbits)).to(dev))
         nl = DC.GLV_G2_LANES if g2 else DC.GLV_G1_LANES
         per = lanes // nl
         ks = [random.randrange(R) for _ in range(per)]
@@ -1936,8 +2374,14 @@ def main():
 
     def k6_shape(g2, nbits, lanes, label=None):
         """A K6 shape: need from these bits, code and chain from the
-        program's own counts for nbits steps."""
-        pts, bits = k6_inputs(g2, nbits, lanes)
+        program's own counts for nbits steps; a dkg phase's shape with
+        Horner inputs."""
+        horner = ("scalar_mul_bits_g2" if g2 else "scalar_mul_bits",
+                  nbits, lanes) in dkg_keys
+        pts, bits = k6_inputs(g2, nbits, lanes, horner)
+        if horner and label is None:
+            label = (f"{nbits} bits at {lanes} (dkg: Z != 1 lanes, "
+                     f"infinity, zero scalar)")
         kind = "ladder_g2" if g2 else "ladder_g1"
         counts = FP.lane_counts(kind, [0] * nbits)
         if g2:
@@ -2089,7 +2533,9 @@ def main():
             "times_are": f"sums over the launches of the main paths: the "
                          f"RLC runs and exact passes at {n} rounds of both "
                          f"signature groups, the threshold phases at {nrp} "
-                         f"rounds x {THRESHOLD} partials",
+                         f"rounds x {THRESHOLD} partials, the dkg phase's "
+                         f"paths ({DKG_N} dealers x {DKG_T} on both key "
+                         f"groups, the {CEREMONY_N}-node ceremony)",
             "per_shape": detail,
             "ptxas": entry_stats(regs, src, *needles),
             "group": group_layout.get(kname),

@@ -10,6 +10,8 @@ Only numpy crosses the boundary: this module imports neither package's
 device code, so either side can hand it arrays.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -106,6 +108,30 @@ def pub_poly(jax_pub_poly, group):
     GroupG1 or GroupG2) with the same commitments (host affine points)."""
     from .crypto.host.tbls import PubPoly
     return PubPoly(group, list(jax_pub_poly.commits))
+
+
+# the DKG wire objects both implementations define (crypto/dkg.py), by name
+_DKG_TYPES = ("DkgNode", "Deal", "DealBundle", "Response", "ResponseBundle",
+             "Justification", "JustificationBundle", "DkgOutput", "PriShare")
+
+
+def dkg_wire(obj, to=None):
+    """A DKG wire object of either implementation (a node, a deal,
+    response or justification bundle, an output, a share, or a list of
+    them) -> the same object built from the classes of the dkg module
+    `to`: the port's ``drand_tpu_torch.crypto.dkg`` when None, or any
+    module with classes of those names (the caller passes the JAX
+    package's).  Carried field by field: indices, statuses, bytes and
+    share scalars, so the bundle's hash and signature are unchanged."""
+    if to is None:
+        from .crypto import dkg as to
+    if isinstance(obj, list):
+        return [dkg_wire(o, to) for o in obj]
+    name = type(obj).__name__
+    if name not in _DKG_TYPES:
+        return obj
+    return getattr(to, name)(**{f.name: dkg_wire(getattr(obj, f.name), to)
+                                for f in dataclasses.fields(obj) if f.init})
 
 
 def glv_digits(bits, neg, device="cpu"):

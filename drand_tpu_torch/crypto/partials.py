@@ -14,7 +14,8 @@ random linear combination:
 
 (and its mirror for signatures on G1), sound except with probability
 ~2^-128.  The public shares pk_i = PubPoly.eval(i) are evaluated once per
-group on the host; the Miller product has (#distinct signers + 1) pairs.
+group (dkg_device.prime_public_shares at committee scale); the Miller
+product has (#distinct signers + 1) pairs.
 When the RLC check fails, the exact pass checks every slot with two
 pairings.
 
@@ -33,6 +34,7 @@ from .batch import (FRONT_DIGEST, FRONT_FIELDS, _NEG_G1, _NEG_G2,
                     _gen_sub, _pair_g2, _rlc_keys, _wire_parse,
                     h2f_device_default, hash_msgs_to_field_g1,
                     hash_msgs_to_field_g2, resolve_device)
+from . import dkg_device
 from .host import tbls as HT
 from .schemes import Scheme, GroupG2
 from ..ops import curve as DC
@@ -173,7 +175,10 @@ class BatchPartialVerifier:
     """Verifies (round, slot) blocks of threshold partials for one group.
 
     Runs on the CUDA device unless ``device="cpu"`` is passed.  The public
-    shares come from ``pub_poly.eval`` on the host, once per group."""
+    shares are evaluated once per group: in one dkg_device dispatch on the
+    verifier's device from ``dkg_device.MIN_N`` signers on (it primes the
+    PubPoly memo, so the evals below are lookups), by ``pub_poly.eval`` on
+    the host below it."""
 
     def __init__(self, scheme: Scheme, pub_poly: HT.PubPoly, n_nodes: int,
                  device=None):
@@ -181,6 +186,9 @@ class BatchPartialVerifier:
         self.g2sig = scheme.sig_group is GroupG2
         self.n_nodes = n_nodes
         self.device = resolve_device(device)
+        if dkg_device.use_device(n_nodes):
+            dkg_device.prime_public_shares(pub_poly, n_nodes,
+                                           device=self.device)
         self.pub_points = [pub_poly.eval(i) for i in range(n_nodes)]
         enc = lambda vals: L.encode_mont(vals, self.device)
         pts = self.pub_points

@@ -740,34 +740,22 @@ def sum_tiles(p):
 
 
 def _pad_lanes(p, lanes: int):
-    """Zero-pad a point batch to `lanes` lanes; an all-zero lane has Z = 0
-    and reads as infinity."""
-    n = _leaf(p[0]).shape[0]
+    """Zero-pad a point batch to `lanes` lanes on its lane axis (the one
+    before the limbs); an all-zero lane has Z = 0 and reads as infinity."""
+    n = _leaf(p[0]).shape[-2]
     if n == lanes:
         return p
-    return _tmap(lambda c: torch.cat([c, c.new_zeros((lanes - n, L.NLIMB))],
-                                     0), p)
+    return _tmap(lambda c: torch.cat(
+        [c, c.new_zeros(c.shape[:-2] + (lanes - n, L.NLIMB))], -2), p)
 
 
 def sum_points_plain(p):
     """pallas_field.sum_points' association: every TILE-lane tile reduced
     to one point (sum_tiles_plain); the per-tile partials, zero-padded,
     reduced again until one tile remains; two to four partials folded in
-    order with complete adds, as the JAX package folds them in XLA."""
-    curve = _curve(p)
-    n = _leaf(p[0]).shape[0]
-    pts = _pad_lanes(p, max(TILE, -(-n // TILE) * TILE))
-    while True:
-        part = sum_tiles_plain(pts)
-        ntiles = _leaf(part[0]).shape[0]
-        if ntiles == 1:
-            return _tmap(lambda c: c[0], part)
-        if ntiles <= 4:
-            acc = _tmap(lambda c: c[0], part)
-            for i in range(1, ntiles):
-                acc = curve.add(acc, _tmap(lambda c: c[i], part))
-            return acc
-        pts = _pad_lanes(part, -(-ntiles // TILE) * TILE)
+    order with complete adds, as the JAX package folds them in XLA.  The
+    one-row case of sum_rows_plain."""
+    return _tmap(lambda c: c[0], sum_rows_plain(_tmap(lambda c: c[None], p)))
 
 
 # K7's width (threads an add): fp12prog.WIDTH while a launch leaves the card
@@ -785,10 +773,24 @@ def sum_width(kind: str, tiles: int) -> int:
 
 
 def sum_rows_plain(p):
-    """sum_points_plain of each row, stacked."""
-    rows = [sum_points_plain(_tmap(lambda c: c[r], p))
-            for r in range(_leaf(p[0]).shape[0])]
-    return _tmap(lambda *xs: torch.stack(xs), *rows)
+    """sum_points_plain of each row of (R, B, 24) limbs: every row has B
+    lanes, so one batch of complete adds runs the same association on all
+    rows at once."""
+    curve = _curve(p)
+    rows, n = _leaf(p[0]).shape[:2]
+    pts = _pad_lanes(p, max(TILE, -(-n // TILE) * TILE))
+    while True:
+        part = _tmap(lambda c: c.reshape(rows, -1, L.NLIMB),
+                     sum_tiles_plain(pts))
+        ntiles = _leaf(part[0]).shape[1]
+        if ntiles == 1:
+            return _tmap(lambda c: c[:, 0], part)
+        if ntiles <= 4:
+            acc = _tmap(lambda c: c[:, 0], part)
+            for i in range(1, ntiles):
+                acc = curve.add(acc, _tmap(lambda c: c[:, i], part))
+            return acc
+        pts = _pad_lanes(part, -(-ntiles // TILE) * TILE)
 
 
 def sum_rows(p):
