@@ -23,32 +23,33 @@ card in two batched waves):
   g2_verify_batch_bisect  chained with six known bad slots;
   g2_exact_pass           the exact pass over the whole chained batch.
 
-Threshold partials, t = 7 of n = 13 signers over 2048 rounds (the JAX
-package's bench config 3), for ``bls-unchained-on-g1`` (``g1_*``) and
-``pedersen-bls-chained`` (``g2_*``):
+Threshold partials, t = 7 of n = 13 signers (the JAX package's bench config
+3) over 512 rounds (config 3 runs 2048; cut to fit the beacon phases), for
+``bls-unchained-on-g1`` (``g1_*``) and ``pedersen-bls-chained`` (``g2_*``):
 
   *_sign               ``sign_batch`` with each of the 7 signers' shares and
                        with the collective secret (8 K6 ladders at 256 bits);
   *_partials_rlc       ``BatchPartialVerifier.verify_partials`` on the
-                       2048 x 7 valid partials: one RLC pass, no exact pass;
+                       512 x 7 valid partials: one RLC pass, no exact pass;
   *_partials_fallback  the same rows with six kinds of bad slot: the RLC
                        pass fails, the exact pass localizes every bad slot;
-  *_recover            ``recover_batch`` over the 2048 x 7 grid: each
+  *_recover            ``recover_batch`` over the 512 x 7 grid: each
                        recovered signature equals the collective-secret one
                        byte for byte and verifies against the group key.
 
 The verify service (``drand_tpu_torch/crypto/verify_service.py``), its pool
-enumerating the card (one group), serving the rounds above through its entry
-points (``VerifyService.handle``, then ``submit`` / ``verify_batch``):
+enumerating the card (one group), serving the first 4096 of the rounds above
+(half the batch since the beacon phases came) through its entry points
+(``VerifyService.handle``, then ``submit`` / ``verify_batch``):
 
-  verify_service       16 caller threads each submit a 512-round slice of
+  verify_service       16 caller threads each submit a 256-round slice of
                        the G1 chain, then of the chained G2 chain, bad
                        slots included, in the background lane: one
-                       8192-lane dispatch a chain (fill 1.0), every
+                       4096-lane dispatch a chain (fill 1.0), every
                        future's verdicts equal to that slice of the direct
                        ``verify_batch`` mask, every kernel of the chain's
-                       RLC list launched; a catch-up of 16,384 G1 rounds
-                       (two 8192 dispatches) while 8 one-round live
+                       RLC list launched; a catch-up of 8192 G1 rounds
+                       (two 4096 dispatches) while 8 one-round live
                        submissions arrive (their latencies, the
                        preemptions); no failover, watchdog trip or host
                        fallback in either; then a failover drill on a
@@ -95,6 +96,31 @@ host combines);
                        excluded, one key; then a reshare whose key-change
                        attempt the pin rejects, the key kept byte for byte.
 
+The beacon layer (``drand_tpu_torch/beacon/``, ``chain/``,
+``net/resilience.py``): 13 nodes of a t = 7 group in this process, each
+wired as a daemon (its own VerifyService on the card at pad 512, partials
+checked through ``partials_factory(device_verifier_factory)`` with no host
+fallback, a SyncChainServer, a SyncManager over the service's handle
+streaming from a peer's server, a FakeClock):
+
+  beacon_quicknet      ``bls-unchained-on-g1``: 12 nodes hold an 8192-round
+                       chain signed by one ``sign_batch``; node 13 catches
+                       up from genesis into sqlite (16 chunks of 512 on its
+                       service's BACKGROUND lane) while the network makes
+                       8 live rounds, one with a forged partial that every
+                       node's exact pass drops;
+  beacon_default       ``pedersen-bls-chained``: 8 rounds from genesis (one
+                       with a forged partial), the sqlite node down for
+                       rounds 5-7 and caught up through sync before round
+                       8, then a bit-flipped and a deleted row in its store: a
+                       full scan on the card finds both, heal restores the
+                       peers' bytes, a second scan is clean;
+
+every node's chain byte-equal and verified (on the card and
+``verify_beacon``), no failover, watchdog trip or host-served check, the
+round walls, the catch-up and scan + heal walls, and one aggregation split
+into the card's check and the host's recovery and ``verify_beacon``.
+
 Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
 timed; K3 and K4 (a warp a pairing lane) also at tail widths with a zero
@@ -124,6 +150,7 @@ import random
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -148,7 +175,13 @@ THRESHOLD_KERNELS = {
            "partials": G2_RLC_KERNELS,
            "recover": ("pow_fixed", "pow_fixed_fp2", "scalar_mul_bits_g2")}}
 THRESHOLD, N_NODES = 7, 13      # bench.py config 3: t = 7 of n = 13
-PARTIALS_ROUNDS = 2048          # rounds a chunk in bench.py config 3
+# the verify_service phase serves rounds[:n // SERVICE_SHARE] (cut from n
+# to fit the beacon phases in the time limit)
+SERVICE_SHARE = 2
+# bench.py config 3 verifies 2048 rounds a chunk; the threshold phases run
+# 512 since the beacon phases came (their depth, cut to keep the script
+# well inside its time limit)
+PARTIALS_ROUNDS = 512
 
 # League of Entropy mainnet, bls-unchained-on-g1, round 3
 LOE_PK = ("876f6fa8073736e22f6ff4badaab35c637503718f7a452d178ce69c45d2d8129"
@@ -184,7 +217,13 @@ def say(line):
         f.flush()
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T0)
     say(json.dumps(obj))
 
 
@@ -531,7 +570,6 @@ def service_phases(ctx):
     width, a catch-up with live work, the failover drill, and the checks
     that nothing fell back to the host outside the drill.  Returns the
     numbers it printed."""
-    import threading
     torch, K, B = ctx["torch"], ctx["K"], ctx["B"]
     schemes, HS, n = ctx["schemes"], ctx["HS"], ctx["n"]
     from drand_tpu_torch import metrics
@@ -576,7 +614,7 @@ def service_phases(ctx):
     th.start()
     th.join()
 
-    # -- 1. coalescing at full width: 16 caller threads, 512 rounds each ----
+    # -- 1. coalescing at full width: 16 caller threads, n / 16 rounds each -
     out = {}
     chains = (("g1", h1, ctx["sigs"], None, ctx["g1_mask"],
                G1_RLC_KERNELS),
@@ -643,9 +681,6 @@ def service_phases(ctx):
                     "fill_ratio": d["dispatch_lanes"]
                     / max(1, d["dispatch_slots"]),
                     "wall_s": wall, "rounds_per_s": n / wall,
-                    "direct_verify_batch_wall_s": ctx["direct_walls"][
-                        tag[:2]],
-                    "direct_rounds_per_s": n / ctx["direct_walls"][tag[:2]],
                     "direct_in_a_thread_wall_s": thread_wall,
                     "launches": launches}
         if not equal:
@@ -787,10 +822,9 @@ def service_phases(ctx):
           "tolerance": "exact: every future's verdicts equal the direct "
                        "mask's slice"})
     say(f"verify_service: coalesced g1 {out['g1']['rounds_per_s']:.0f} "
-        f"rounds/s (direct {out['g1']['direct_rounds_per_s']:.0f}, from a "
-        f"thread {n / out['g1']['direct_in_a_thread_wall_s']:.0f}), "
-        f"g2 chained {out['g2_chained']['rounds_per_s']:.0f} "
-        f"(direct {out['g2_chained']['direct_rounds_per_s']:.0f}); "
+        f"rounds/s (direct from a thread "
+        f"{n / out['g1']['direct_in_a_thread_wall_s']:.0f}), "
+        f"g2 chained {out['g2_chained']['rounds_per_s']:.0f}; "
         f"catch-up {out['catch_up']['wall_s']:.3f} s, live p50 / max "
         f"{out['catch_up']['live_latency_p50_s']:.3f} / "
         f"{out['catch_up']['live_latency_max_s']:.3f} s, preemptions "
@@ -1194,6 +1228,731 @@ def dkg_phases(ctx):
         fail(f"dkg ceremony: fresh {fresh_ok} (complaints {complaints}), "
              f"reshare {reshare_ok}, dispatches {disp_f} / {disp_r} (want "
              f"{2 * cn} / {3 * cn})")
+    return {"paths": paths, "walls": walls}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4's plain twins, run together where one call can run them
+# ---------------------------------------------------------------------------
+
+# the arguments of a plain twin whose lanes lie on axis 1 (bit planes)
+_BIT_ARGS = {"scalar_mul_bits_plain": (1,),
+             "scalar_mul_glv_mixed_plain": (3, 4)}
+# lanes a joined plain call may hold: up to here a plain twin is
+# launch-bound (on the H100: K3 6.8 s at 2 pairs, 8.0 s at 2048; K4 7.6 s
+# at 1 lane, 8.8 s at 1024), so the joined call costs about what each of
+# its shapes costs alone; a wider shape runs alone
+PLAIN_JOIN_LANES = 4096
+
+
+def _tree_map(f, x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_map(f, v) for v in x)
+    return f(x)
+
+
+def _tensor_leaves(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensor_leaves(v)]
+    return []
+
+
+class Plain:
+    """A kernel's plain twin on fixed inputs, ``kernels.<fn>(*args)``.
+
+    Every plain twin is lane-wise (K7's: row-wise, a row's lanes summing),
+    and at small widths its time is launch-bound Python (some 1-40 s a
+    shape on the H100), so `run_plain` runs the twins that share a
+    function, its non-tensor arguments, the nesting and every shape off the
+    lane axis as one call over their lanes joined, up to PLAIN_JOIN_LANES
+    lanes, and hands each its own lanes of the output."""
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+
+    def __call__(self):
+        from drand_tpu_torch.ops import kernels as K
+        return getattr(K, self.fn)(*self.args)
+
+    def axis(self, i):
+        return 1 if i in _BIT_ARGS.get(self.fn, ()) else 0
+
+    def lanes(self):
+        """The lane count of every argument, or None where they differ."""
+        n = {t.shape[self.axis(i)] for i, a in enumerate(self.args)
+             for t in _tensor_leaves(a)}
+        return n.pop() if len(n) == 1 else None
+
+    def key(self):
+        def sig(x, ax):
+            if isinstance(x, (tuple, list)):
+                return (type(x).__name__,) + tuple(sig(v, ax) for v in x)
+            if hasattr(x, "shape") and hasattr(x, "dtype"):
+                return ("tensor", str(x.dtype),
+                        tuple(d for k, d in enumerate(x.shape) if k != ax))
+            return ("value", x)
+        if self.lanes() is None:
+            return ("alone", id(self))
+        return (self.fn,) + tuple(sig(a, self.axis(i))
+                                  for i, a in enumerate(self.args))
+
+
+def run_plain(plains, sync):
+    """[Plain] -> ([(output, wall ms of its call, lanes of its call)],
+    calls made): joinable twins (Plain.key) share a call up to
+    PLAIN_JOIN_LANES lanes, each call timed with `sync`."""
+    import torch
+    groups = {}
+    for j, p in enumerate(plains):
+        groups.setdefault(p.key(), []).append(j)
+    calls = []
+    for idx in groups.values():
+        part, total = [], 0
+        for j in sorted(idx, key=lambda j: plains[j].lanes() or 0):
+            n = plains[j].lanes() or 0
+            if part and total + n > PLAIN_JOIN_LANES:
+                calls.append(part)
+                part, total = [], 0
+            part.append(j)
+            total += n
+        calls.append(part)
+    out = [None] * len(plains)
+    for idx in calls:
+        ps = [plains[j] for j in idx]
+        args = [_join([p.args[i] for p in ps], ps[0].axis(i))
+                for i in range(len(ps[0].args))]
+        sync()
+        t0 = time.perf_counter()
+        res = Plain(ps[0].fn, *args)()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        sizes = [p.lanes() for p in ps]
+        lo = 0
+        for j, n in zip(idx, sizes):
+            out[j] = (_tree_map(lambda t, lo=lo, n=n: t[lo:lo + n]
+                                if isinstance(t, torch.Tensor) else t, res),
+                      ms, sum(sizes))
+            lo += n
+    return out, len(calls)
+
+
+def _join(parts, ax):
+    """Join the same argument of several twins along its lane axis."""
+    import torch
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts, ax) if len(parts) > 1 else first
+    if isinstance(first, (tuple, list)):
+        return type(first)(_join([p[k] for p in parts], ax)
+                           for k in range(len(first)))
+    return first
+
+
+# ---------------------------------------------------------------------------
+# The beacon phases: the port's beacon layer (beacon/, chain/,
+# net/resilience.py) as a network of 13 daemons in one process
+# ---------------------------------------------------------------------------
+
+BEACON_CHAIN = 8192          # quicknet rounds the 12 running nodes hold
+BEACON_LIVE = 8              # live rounds each phase produces
+BEACON_CHUNK = 512           # sync and scan chunk (beacon/sync.py's default)
+BEACON_DOWN = 3              # rounds a beacon_default node is down
+BEACON_FORGE_AT = 3          # the live round with a forged partial
+BEACON_FORGER = 4            # the signer index that forges it
+BEACON_WAIT_S = 600          # real seconds a node may take to store a round
+# 13 daemons share one interpreter and one card here.  A (1, 13) partials
+# pass is thousands of short torch calls on the card's default stream:
+# twelve of them at once from twelve threads took 47 s (G1) and 102 s
+# (G2) against 5.3 s and 15.1 s taking turns (one (1, 13) pass alone 0.32
+# / 1.22 s; H100, tools/torch_beacon_contention.py), so the nodes'
+# checks, syncs and scans take turns on the card (BeaconNet.card).  With
+# the host's
+# recover + verify_beacon beside them, a 1 ms GIL switch interval beat
+# 5 ms on G2 (17.1 against 21.1 s a round) and 0.1 ms lost on both.
+BEACON_SWITCH_S = 1e-3
+# League of Entropy: quicknet (bls-unchained-on-g1) a round every 3 s from
+# 1692803367, the default chain (pedersen-bls-chained) every 30 s from
+# 1595431050
+QUICKNET_PERIOD, QUICKNET_GENESIS = 3, 1_692_803_367
+DEFAULT_PERIOD, DEFAULT_GENESIS = 30, 1_595_431_050
+
+
+class _PeerStream:
+    """A peer's SyncChainServer stream as a transport hands it out: an
+    iterator with cancel(), which ends the server's live-follow loop."""
+
+    def __init__(self, server, remote, from_round):
+        self._stop = threading.Event()
+        self._gen = server.stream(remote, from_round, stop=self._stop)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._gen)
+
+    def cancel(self):
+        self._stop.set()
+        try:
+            self._gen.close()       # a suspended stream unregisters now
+        except ValueError:
+            pass                    # running in a pump thread: it sees stop
+
+
+class _Timed:
+    """A node's partial verifier run in turns on the card (`card`, one lock
+    for the nodes of this process), each call's partials, verdicts, wait
+    for the card and check wall recorded: the aggregation-time checks the
+    phase reads back."""
+
+    def __init__(self, inner, card, log, node, errors):
+        self.inner, self.card, self.log = inner, card, log
+        self.node, self.errors = node, errors
+        self.kind = inner.kind
+
+    def verify(self, msg, partials):
+        t0 = time.perf_counter()
+        with self.card:
+            t1 = time.perf_counter()
+            try:
+                out = self.inner.verify(msg, partials)
+            except Exception as e:  # noqa: BLE001 — reported, then raised
+                self.errors.append((self.node, repr(e)))
+                raise
+            t2 = time.perf_counter()
+        self.log.append((self.node, msg, list(partials), list(out),
+                         t2 - t1, t1 - t0))
+        return out
+
+
+def _take_turns(backend, card):
+    """A verify-service handle's device backend whose passes (its dispatch
+    and resolve stages, which the service's threads call) take turns on
+    the card with the nodes' partial checks."""
+    if getattr(backend, "_takes_turns", False):
+        return                      # a restarted node's cached handle
+    backend._takes_turns = True
+    for name in ("dispatch_packed", "resolve_packed"):
+        fn = getattr(backend, name, None)
+        if fn is None:
+            continue
+
+        def in_turn(*a, _fn=fn, **kw):
+            with card:
+                return _fn(*a, **kw)
+        setattr(backend, name, in_turn)
+
+
+class BeaconNet:
+    """n nodes of one t-of-n group in one process, each wired as
+    core/beacon_process.py:395-440 wires a daemon: its own VerifyService on
+    the card (pad `chunk`), partials checked through
+    ``partials_factory(factory)`` with no host fallback, a SyncChainServer,
+    and a SyncManager over the service's handle whose fetch streams from a
+    peer's server.  Partials travel by synchronous in-process delivery
+    (tests/harness.py's LocalNetwork); time is one FakeClock."""
+
+    def __init__(self, scheme, poly, n, t, period, genesis, clock, chunk,
+                 factory, handle=None, seed=b"beacon"):
+        from drand_tpu_torch.key import DistPublic, Share, new_group, \
+            new_keypair
+        self.scheme, self.poly, self.n, self.t = scheme, poly, n, t
+        self.period, self.clock, self.chunk = period, clock, chunk
+        self.factory = factory
+        self.handle = handle or (lambda svc, s, pk: svc.handle(s, pk))
+        pairs = [new_keypair(f"node{i}", scheme, seed=seed + b"%d" % i)
+                 for i in range(n)]
+        self.group = new_group([p.public for p in pairs], t, genesis=genesis,
+                               period=period,
+                               catchup_period=max(1, period // 2),
+                               scheme=scheme)
+        pub = poly.commit(scheme.key_group)
+        self.commits = [scheme.key_group.to_bytes(c) for c in pub.commits]
+        self.group.public_key = DistPublic(self.commits)
+        self.pk = self.commits[0]
+        self.shares = {i: Share(scheme=scheme, private=poly.eval(i),
+                                commits=self.commits) for i in range(n)}
+        self.nodes, self.services, self.down = {}, {}, set()
+        self.log, self.errors = [], []
+        self.card = threading.Lock()
+        self._streams = 0           # a stream's remote address is unique,
+        self._lock = threading.Lock()   # as a connection's port is
+
+    def add(self, i, store):
+        """Build node i over `store` (its service survives a restart)."""
+        from types import SimpleNamespace
+        from drand_tpu_torch.beacon import Handler, HandlerConfig
+        from drand_tpu_torch.beacon.sync import SyncChainServer, SyncManager
+        from drand_tpu_torch.crypto.verify_service import VerifyService
+        svc = self.services.get(i)
+        if svc is None:
+            svc = self.services[i] = VerifyService(pad=self.chunk)
+        node = SimpleNamespace(index=i, svc=svc, store=store, syncm=None)
+
+        def on_sync_needed(target, node=node):
+            if node.syncm is not None:
+                node.syncm.send_sync_request(target)
+
+        timed = lambda s, p, k, i=i: _Timed(  # noqa: E731
+            self.factory(s, p, k), self.card, self.log, i, self.errors)
+        node.handler = Handler(HandlerConfig(
+            group=self.group, share=self.shares[i], index=i, store=store,
+            clock=self.clock, verifier_factory=svc.partials_factory(timed),
+            broadcast=self.broadcaster(i), on_sync_needed=on_sync_needed))
+        node.handle = self.handle(svc, self.scheme, self.pk)
+        _take_turns(node.handle.backend, self.card)
+        node.server = SyncChainServer(node.handler.chain)
+        node.syncm = SyncManager(
+            node.handler.chain, self.scheme, self.pk, self.period,
+            self.clock, fetch=self.fetch_for(i),
+            peers=[j for j in range(self.n) if j != i], chunk=self.chunk,
+            verifier=node.handle)
+        node.syncm.start()
+        with self._lock:
+            self.nodes[i] = node
+            self.down.discard(i)
+        return node
+
+    def broadcaster(self, sender):
+        def broadcast(packet):
+            with self._lock:
+                targets = [nd.handler for j, nd in self.nodes.items()
+                           if j != sender and j not in self.down
+                           and sender not in self.down]
+            for h in targets:
+                try:
+                    h.process_partial_beacon(packet)
+                except ValueError:
+                    pass
+        return broadcast
+
+    def fetch_for(self, i):
+        def fetch(peer, from_round):
+            with self._lock:
+                nd = self.nodes.get(peer)
+                if nd is None or peer in self.down:
+                    raise ConnectionError(f"node{peer} is down")
+                self._streams += 1
+                remote = f"node{i}:{self._streams}"
+            return _PeerStream(nd.server, remote, from_round)
+        return fetch
+
+    def forge(self, round_, prev):
+        """Signer BEACON_FORGER's partial for `round_` carrying the next
+        signer's signature (a valid index and point, the wrong share),
+        delivered to every other node before the round's tick, so it is
+        each cache's first partial of the round.  Returns its bytes."""
+        from drand_tpu_torch.beacon.node import PartialBeaconPacket
+        from drand_tpu_torch.crypto.host import tbls
+        f = BEACON_FORGER
+        msg = self.scheme.digest_beacon(round_, prev)
+        other = tbls.sign_partial(self.scheme, self.poly.eval(f + 1), msg)
+        forged = f.to_bytes(2, "big") + other[2:]
+        self.broadcaster(f)(PartialBeaconPacket(
+            round=round_, previous_signature=prev, partial_sig=forged))
+        return forged
+
+    def wait(self, i, round_):
+        """Node i's beacon of `round_`; fails at a partial check that
+        raised (no fallback: nothing retries it) or after BEACON_WAIT_S."""
+        chain = self.nodes[i].handler.chain
+        deadline = time.perf_counter() + BEACON_WAIT_S
+        while True:
+            b = chain.wait_for_round(round_, 1.0)
+            if b is not None:
+                return b
+            if self.errors or time.perf_counter() > deadline:
+                heads = {j: nd.handler.chain.last().round
+                         for j, nd in self.nodes.items()
+                         if j not in self.down}
+                fail(f"beacon: node {i} did not store round {round_}: "
+                     f"check errors {self.errors[:3]}, heads {heads}, "
+                     f"services {self.stats()}, last checks "
+                     f"{[(nd, len(p), v, round(w, 2)) for nd, _, p, v, w, _ in self.log[-5:]]}")
+
+    def kill(self, i):
+        with self._lock:
+            self.down.add(i)
+            nd = self.nodes[i]
+        nd.syncm.stop()
+        nd.handler.stop()
+
+    def chains(self, upto):
+        """Every node's stored (round, signature) rows 0..upto."""
+        out = {}
+        for i, nd in sorted(self.nodes.items()):
+            out[i] = [(b.round, bytes(b.signature))
+                      for b in nd.handler.chain.backend.cursor()
+                      if b.round <= upto]
+        return out
+
+    def stats(self):
+        """The services' stats summed over the nodes."""
+        keys = ("submitted", "dispatches", "preemptions", "failovers",
+                "promotions", "watchdog_trips", "host_served")
+        tot = {k: 0 for k in keys}
+        states = []
+        for svc in self.services.values():
+            st = svc.stats()
+            for k in keys:
+                tot[k] += st[k]
+            states += list(st["backends"].values())
+        tot["backends_not_healthy"] = sum(s != "healthy" for s in states)
+        return tot
+
+    def stop(self):
+        for i, nd in self.nodes.items():
+            if i not in self.down:
+                nd.syncm.stop()
+                nd.handler.stop()
+        for svc in self.services.values():
+            svc.stop()
+
+
+def beacon_phases(ctx):
+    """The beacon phases (module doc): beacon_quicknet and beacon_default.
+    Returns {"paths": {path: (launches, shapes)}, "walls": {...}}; the
+    paths' shapes join phase 4.  ctx may shrink the network (beacon_n,
+    beacon_t, beacon_chain, beacon_live, beacon_chunk) and swap the
+    partial-verifier factory and the handle (beacon_factory,
+    beacon_handle) for a rehearsal without a card."""
+    import shutil
+    import tempfile
+    torch, K, B = ctx["torch"], ctx["K"], ctx["B"]
+    schemes, HT, R, rng = ctx["schemes"], ctx["HT"], ctx["R"], ctx["rng"]
+    name, smi_line = ctx["name"], ctx["smi_line"]
+    n, t = ctx.get("beacon_n", N_NODES), ctx.get("beacon_t", THRESHOLD)
+    head = ctx.get("beacon_chain", BEACON_CHAIN)
+    live = ctx.get("beacon_live", BEACON_LIVE)
+    chunk = ctx.get("beacon_chunk", BEACON_CHUNK)
+    from drand_tpu_torch.beacon.chainstore import HostPartialVerifier
+    from drand_tpu_torch.beacon.clock import FakeClock
+    from drand_tpu_torch.beacon.node import device_verifier_factory
+    from drand_tpu_torch.chain import (Beacon, MemDBStore, SqliteStore,
+                                       genesis_beacon, time_of_round)
+    from drand_tpu_torch.chain.integrity import (INVALID_SIG, MISSING,
+                                                 UNLINKED)
+    factory = ctx.get("beacon_factory", device_verifier_factory)
+    on_card = factory is device_verifier_factory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_beacon_")
+    paths, walls = {}, {}
+
+    def rnd():
+        return int.from_bytes(rng.bytes(32), "big") % (R - 1) + 1
+
+    def snapshot(path, passes0):
+        torch.cuda.synchronize()
+        after = B.pass_counts()
+        paths[path] = (dict(K.LAUNCHES), dict(K.SHAPES))
+        return {k: after[k] - passes0[k] for k in after}
+
+    def one_aggregation(net, round_, prev):
+        """One aggregation of t partials on node 0, stage by stage: its
+        device check (the node's verifier, through its service's LIVE
+        lane), the host's Lagrange recovery and verify_beacon, and the
+        reference's per-packet host check of the same partials."""
+        sch = net.scheme
+        msg = sch.digest_beacon(round_, prev)
+        parts = [HT.sign_partial(sch, net.poly.eval(i), msg)
+                 for i in range(t)]
+        nd = net.nodes[0]
+        pv = nd.handler.chain.partial_verifier
+        pub = nd.handler.vault.get_pub()
+        pv.verify(msg, parts)
+        out = {}
+        t0 = time.perf_counter()
+        ok = pv.verify(msg, parts)
+        out["device_check_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sig = HT.recover(sch, pub, msg, parts, t, n, verify_each=False)
+        out["host_recover_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok_b = sch.verify_beacon(net.pk, round_, prev, sig)
+        out["host_verify_beacon_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok_h = HostPartialVerifier(sch, pub).verify(msg, parts)
+        out["host_per_packet_check_s"] = time.perf_counter() - t0
+        out["host_s"] = out["host_recover_s"] + out["host_verify_beacon_s"]
+        out["all_valid"] = bool(all(ok) and ok_b and all(ok_h))
+        return out
+
+    def forged_seen(log, forged):
+        """{node: verdicts} of the checks that held the forged partial."""
+        seen = {}
+        for node, _, parts, verdicts, *_ in log:
+            for p, v in zip(parts, verdicts):
+                if p == forged:
+                    seen.setdefault(node, []).append(bool(v))
+        return seen
+
+    def check_common(log, chains, upto, forged, passes, st):
+        rows = list(range(upto + 1))
+        agree = len({tuple(c) for c in chains.values()}) == 1 \
+            and all([r for r, _ in c] == rows for c in chains.values())
+        seen = forged_seen(log, forged)
+        dropped = bool(seen) and all(v == [False] for v in seen.values())
+        lat = sorted(w for *_, w, _ in log)
+        waits = sorted(w for *_, w in log)
+        health = {k: st[k] for k in ("failovers", "watchdog_trips",
+                                     "host_served", "backends_not_healthy")}
+        out = {"nodes_agree_byte_for_byte": agree,
+               "forged_partial_checked_on_nodes": len(seen),
+               "forged_partial_dropped": dropped,
+               "partial_checks": len(log),
+               "partial_check_s_p50": float(np.median(lat)) if lat else None,
+               "partial_check_s_max": lat[-1] if lat else None,
+               "card_wait_s_p50": float(np.median(waits)) if waits
+               else None,
+               "card_wait_s_max": waits[-1] if waits else None,
+               "passes": passes, "service": st}
+        bad = [] if agree else ["the nodes' chains differ"]
+        if not dropped or len(seen) < n - 2:
+            bad.append(f"forged partial: {seen}")
+        if on_card:
+            if any(health.values()):
+                bad.append(f"the services fell back or tripped: {health}")
+            if passes["exact"] < 1:
+                bad.append(f"no exact pass dropped the forgery: {passes}")
+        return out, bad
+
+    def quicknet():
+        sch = schemes.scheme_from_name(schemes.SHORT_SIG_SCHEME_ID)
+        poly = HT.PriPoly([rnd() for _ in range(t)])
+        clock = FakeClock(time_of_round(QUICKNET_PERIOD, QUICKNET_GENESIS,
+                                        head + 1))
+        net = BeaconNet(sch, poly, n, t, QUICKNET_PERIOD, QUICKNET_GENESIS,
+                        clock, chunk, factory, ctx.get("beacon_handle"),
+                        seed=b"quicknet")
+        t0 = time.perf_counter()
+        msgs = [sch.digest_beacon(r) for r in range(1, head + 1)]
+        sigs = B.sign_batch(sch, poly.secret(), msgs)
+        torch.cuda.synchronize()
+        sign_s = time.perf_counter() - t0
+        for i in sorted({0, head // 2, head - 1}):
+            if sigs[i] != sch.sign(poly.secret(), msgs[i]):
+                fail(f"beacon_quicknet: sign_batch disagrees with the host "
+                     f"at round {i + 1}")
+        seed = net.group.get_genesis_seed()
+        late = n - 1
+        stores = []
+        for i in range(late):
+            s = MemDBStore(buffer_size=head + live + 64)
+            s.put(genesis_beacon(seed))
+            s.put_many(Beacon(round=r, signature=g)
+                       for r, g in zip(range(1, head + 1), sigs))
+            stores.append(s)
+        stores.append(SqliteStore(os.path.join(tmp, "quicknet.db")))
+        torch.cuda.synchronize()
+        K.reset_launches()
+        passes0 = B.pass_counts()
+        t0 = time.perf_counter()
+        for i in range(n):
+            net.add(i, stores[i])
+        build_s = time.perf_counter() - t0
+        caught = []
+        watcher = threading.Thread(target=lambda: caught.append(
+            (net.nodes[late].handler.chain.wait_for_round(head,
+                                                          BEACON_WAIT_S),
+             time.perf_counter())))
+        t_start = time.perf_counter()
+        net.nodes[late].handler.catchup()
+        watcher.start()
+        for i in range(late):
+            net.nodes[i].handler.start()
+        round_walls, forged = [], None
+        for k in range(1, live + 1):
+            r = head + k
+            t_tick = t_start
+            if k > 1:
+                if k == BEACON_FORGE_AT:
+                    forged = net.forge(r, None)
+                t_tick = time.perf_counter()
+                clock.advance(QUICKNET_PERIOD)
+            for i in range(late):
+                net.wait(i, r)
+            round_walls.append(time.perf_counter() - t_tick)
+        watcher.join(BEACON_WAIT_S)
+        if not caught or caught[0][0] is None:
+            fail(f"beacon_quicknet: node {late} did not catch up to {head}")
+        catchup_s = caught[0][1] - t_start
+        net.wait(late, head + live)
+        all_s = time.perf_counter() - t_start
+        passes = snapshot("beacon_quicknet", passes0)
+        st = net.stats()
+        chains = net.chains(head + live)
+        log = list(net.log)
+        split = one_aggregation(net, head + live + 1, None)
+        net.stop()
+        out, bad = check_common(log, chains, head + live, forged, passes, st)
+        got = [g for r, g in chains[0]]
+        same = got[1:head + 1] == sigs
+        v = B.BatchBeaconVerifier(sch, net.pk)
+        rounds = list(range(1, head + live + 1))
+        ok_dev = bool(v.verify_batch(rounds[:head], got[1:head + 1]).all()) \
+            and bool(v.verify_batch(rounds[head:], got[head + 1:]).all())
+        host_rounds = [1, head] + rounds[head:]
+        ok_host = all(sch.verify_beacon(net.pk, r, None, got[r])
+                      for r in host_rounds)
+        if not same:
+            bad.append("the stored chain differs from sign_batch's")
+        if not (ok_dev and ok_host):
+            bad.append(f"stored beacons fail to verify: device {ok_dev}, "
+                       f"host {ok_host}")
+        if split["all_valid"] is not True:
+            bad.append(f"the one-aggregation split: {split}")
+        launches = paths["beacon_quicknet"][0]
+        if on_card and any(launches[k] == 0 for k in G1_RLC_KERNELS):
+            bad.append(f"a kernel of the path was not launched: {launches}")
+        walls["beacon_quicknet"] = all_s
+        emit({"phase": "beacon_quicknet", "scheme": sch.id, "nodes": n,
+              "threshold": t, "chain_rounds": head, "live_rounds": live,
+              "sync_chunk": chunk, "late_node_store": "sqlite",
+              "switch_interval_s": sys.getswitchinterval(),
+              "forged_at_round": head + BEACON_FORGE_AT,
+              "sign_batch_s": sign_s, "nodes_build_s": build_s,
+              "catch_up_s": catchup_s,
+              "catch_up_rounds_per_s": head / catchup_s,
+              "round_wall_s": round_walls,
+              "round_wall_s_p50": float(np.median(round_walls)),
+              "round_wall_s_max": max(round_walls), "wall_s": all_s,
+              "one_aggregation": split, "chain_equals_sign_batch": same,
+              "verify_batch_all_valid": ok_dev,
+              "host_verify_beacon_rounds": host_rounds,
+              "host_verify_beacon_all_valid": ok_host, **out,
+              "launches": launches, "device": name, "nvidia_smi": smi_line})
+        if bad:
+            fail(f"beacon_quicknet: {bad}")
+
+    def default():
+        sch = schemes.scheme_from_name(schemes.DEFAULT_SCHEME_ID)
+        poly = HT.PriPoly([rnd() for _ in range(t)])
+        period = DEFAULT_PERIOD
+        clock = FakeClock(DEFAULT_GENESIS - period)
+        net = BeaconNet(sch, poly, n, t, period, DEFAULT_GENESIS, clock,
+                        chunk, factory, ctx.get("beacon_handle"),
+                        seed=b"default")
+        late = n - 1
+        db = os.path.join(tmp, "default.db")
+        stores = [MemDBStore(buffer_size=100) for _ in range(late)] \
+            + [SqliteStore(db)]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        passes0 = B.pass_counts()
+        t_start = time.perf_counter()
+        for i in range(n):
+            net.add(i, stores[i])
+        for nd in net.nodes.values():
+            nd.handler.start()
+        round_walls, forged = [], None
+
+        def tick(r, nodes):
+            nonlocal forged
+            prev = net.nodes[0].handler.chain.last().signature
+            if r == BEACON_FORGE_AT:
+                forged = net.forge(r, prev)
+            t_tick = time.perf_counter()
+            clock.set_time(time_of_round(period, DEFAULT_GENESIS, r))
+            for i in nodes:
+                net.wait(i, r)
+            round_walls.append(time.perf_counter() - t_tick)
+
+        # `live` rounds from genesis: the sqlite node is down for
+        # BEACON_DOWN of them, then revived, and the last runs with all
+        everyone = list(range(n))
+        down_from = live - BEACON_DOWN
+        for r in range(1, down_from):
+            tick(r, everyone)
+        net.kill(late)
+        for r in range(down_from, live):
+            tick(r, everyone[:late])
+        t0 = time.perf_counter()
+        nd = net.add(late, SqliteStore(db))
+        nd.handler.catchup()
+        net.wait(late, live - 1)
+        revive_s = time.perf_counter() - t0
+        head_d = live
+        tick(head_d, everyone)
+        # at-rest faults on the revived node's sqlite store, then a full
+        # scan on the card, heal from the peers, and a second scan
+        raw = nd.handler.chain.backend
+        flip_r, del_r = max(1, head_d // 2 - 1), head_d - 3
+        peer_rows = {r: net.nodes[0].handler.chain.backend.get(r).signature
+                     for r in (flip_r, del_r)}
+        b = raw.get(flip_r)
+        sig = bytearray(b.signature)
+        sig[len(sig) // 3] ^= 0x01
+        raw.delete(flip_r)
+        raw.put(Beacon(round=flip_r, signature=bytes(sig)))
+        raw.delete(del_r)
+        t0 = time.perf_counter()
+        report = nd.handler.chain.integrity_scan(
+            verifier=nd.handle, mode="full", chunk=chunk, trigger="manual")
+        left = nd.syncm.heal(raw, report, peers=everyone[:late])
+        again = nd.handler.chain.integrity_scan(
+            verifier=nd.handle, mode="full", chunk=chunk, trigger="manual")
+        scan_heal_s = time.perf_counter() - t0
+        all_s = time.perf_counter() - t_start
+        passes = snapshot("beacon_default", passes0)
+        st = net.stats()
+        chains = net.chains(head_d)
+        log = list(net.log)
+        split = one_aggregation(net, head_d + 1, chains[0][-1][1])
+        net.stop()
+        found = [(f.round, f.kind) for f in report.findings]
+        want = [(flip_r, INVALID_SIG), (flip_r + 1, UNLINKED),
+                (del_r, MISSING), (del_r + 1, UNLINKED)]
+        restored = {r: dict(chains[late]).get(r) == peer_rows[r]
+                    for r in peer_rows}
+        out, bad = check_common(log, chains, head_d, forged, passes, st)
+        got = [g for r, g in chains[0]]
+        rounds = list(range(1, head_d + 1))
+        prevs = [net.group.get_genesis_seed()] + got[1:-1]
+        v = B.BatchBeaconVerifier(sch, net.pk)
+        ok_dev = bool(v.verify_batch(rounds, got[1:], prevs).all())
+        ok_host = all(sch.verify_beacon(net.pk, r, p, g)
+                      for r, p, g in zip(rounds, prevs, got[1:]))
+        if found != want or left or not again.clean \
+                or not all(restored.values()):
+            bad.append(f"scan and heal: found {found} (want {want}), left "
+                       f"{left}, second scan clean {again.clean}, restored "
+                       f"{restored}")
+        if not (ok_dev and ok_host):
+            bad.append(f"stored beacons fail to verify: device {ok_dev}, "
+                       f"host {ok_host}")
+        if split["all_valid"] is not True:
+            bad.append(f"the one-aggregation split: {split}")
+        launches = paths["beacon_default"][0]
+        if on_card and any(launches[k] == 0 for k in G2_RLC_KERNELS):
+            bad.append(f"a kernel of the path was not launched: {launches}")
+        walls["beacon_default"] = all_s
+        emit({"phase": "beacon_default", "scheme": sch.id, "nodes": n,
+              "threshold": t, "rounds": head_d, "down_node_store": "sqlite",
+              "down_rounds": [down_from, live - 1],
+              "forged_at_round": BEACON_FORGE_AT,
+              "round_wall_s": round_walls,
+              "round_wall_s_p50": float(np.median(round_walls)),
+              "round_wall_s_max": max(round_walls),
+              "revive_catch_up_s": revive_s,
+              "scan_heal_s": scan_heal_s, "scan_findings": found,
+              "heal_left": left, "second_scan_clean": again.clean,
+              "restored_peer_bytes": restored, "wall_s": all_s,
+              "one_aggregation": split, "verify_batch_all_valid": ok_dev,
+              "host_verify_beacon_all_valid": ok_host, **out,
+              "launches": launches, "device": name, "nvidia_smi": smi_line})
+        if bad:
+            fail(f"beacon_default: {bad}")
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(BEACON_SWITCH_S)
+    try:
+        quicknet()
+        default()
+    finally:
+        sys.setswitchinterval(switch)
+        shutil.rmtree(tmp, ignore_errors=True)
     return {"paths": paths, "walls": walls}
 
 
@@ -1831,12 +2590,14 @@ def main():
     # pool-wide placement) serves the rounds signed above through its
     # entry points: handles, submit from many caller threads, the lanes,
     # chunking, and its failure domain.
+    # Its depth is half the batch (SERVICE_SHARE) since the beacon phases
+    # came: the same code paths, and time for them in the script's limit.
+    ns = n // SERVICE_SHARE
     service_phases(
         dict(torch=torch, K=K, B=B, schemes=schemes, HS=HS, pk=pk, pk2=pk2,
-             rounds=rounds, sigs=sigs, good_sigs=good_sigs, bsigs=bsigs,
-             cprevs=cprevs, g1_mask=g1_mask, g2_mask=g2_mask,
-             direct_walls={"g1": bis_wall, "g2": g2b_wall}, n=n, name=name,
-             smi_line=smi_line))
+             rounds=rounds[:ns], sigs=sigs[:ns], good_sigs=good_sigs[:ns],
+             bsigs=bsigs[:ns], cprevs=cprevs[:ns], g1_mask=g1_mask[:ns],
+             g2_mask=g2_mask[:ns], n=ns, name=name, smi_line=smi_line))
     assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
 
     # -- phase dkg: the device DKG at committee scale, and a ceremony -------
@@ -1844,6 +2605,12 @@ def main():
                           HT=HT, HS=HS, R=R, name=name, smi_line=smi_line,
                           rng=rng))
     dkg_keys = {sh for _, shapes in dkg["paths"].values() for sh in shapes}
+    assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
+
+    # -- phase beacon: the beacon layer as a network of 13 daemons ----------
+    beacon = beacon_phases(dict(torch=torch, K=K, B=B, schemes=schemes,
+                                HT=HT, R=R, rng=rng, name=name,
+                                smi_line=smi_line))
     assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
 
     # -- phase 4: each kernel against its plain version at the path's shapes
@@ -1872,13 +2639,6 @@ def main():
             return fn()
         finally:
             setattr(K, attr, saved)
-
-    def plain_run(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
 
     def err(a, b):
         torch.cuda.synchronize()
@@ -2000,7 +2760,7 @@ def main():
         w = K.fixed_width(kind, lanes)
         counts = FP.lane_counts(kind, L.exp_bits(key), w)
         return (label, key, lanes, lambda: K.scalar_mul_fixed(pts, key),
-                lambda: K.scalar_mul_fixed_plain(pts, key), err_flat,
+                Plain("scalar_mul_fixed_plain", pts, key), err_flat,
                 (need_ladder_g2(key) if g2k else need_ladder(key),
                  code_group(counts)), 12 if g2k else 6,
                 dict(chain(kind, counts), threads_per_lane=w))
@@ -2012,7 +2772,7 @@ def main():
         else:
             code, entry = code_pow(*K.pow_schedule(e)), "k_pow"
         return (label, e, x.shape[0], lambda: K.pow_fixed(x, e),
-                lambda: K.pow_fixed_plain(x, e), lambda a, b: err([a], [b]),
+                Plain("pow_fixed_plain", x, e), lambda a, b: err([a], [b]),
                 (need_inv(P) if e == P - 2 else need_pow(e), code),
                 2 * K1_LIMB_BYTES / WORD_BYTES, {"entry": entry})
 
@@ -2023,7 +2783,7 @@ def main():
         w = FP.WIDTH["pow2"]
         counts = FP.lane_counts("pow2", e, w)
         return (label, e, lanes, lambda: K.pow_fixed_fp2(x, e),
-                lambda: K.pow_fixed_fp2_plain(x, e), err_flat,
+                Plain("pow_fixed_fp2_plain", x, e), err_flat,
                 (need_pow2(e, P), code_group(counts)), 4,
                 dict(chain("pow2", counts), threads_per_lane=w))
     leaves = T.fp12_leaves
@@ -2060,7 +2820,7 @@ def main():
         counts = FP.lane_counts(kind, [0] * nbits)
         need = need_glv_g2(b0, b1) if g2k else need_glv(b0, b1)
         return (label, nbits, lanes, lambda: K.scalar_mul_glv_mixed(*args),
-                lambda: K.scalar_mul_glv_mixed_plain(*args), err_flat,
+                Plain("scalar_mul_glv_mixed_plain", *args), err_flat,
                 (need / lanes, code_group(counts)),
                 (27 if g2k else 9) * limb_words + 2 * nbits / 12,
                 dict(chain(kind, counts), threads_per_lane=FP.WIDTH[kind]))
@@ -2081,7 +2841,7 @@ def main():
         levels = k7_levels(lanes, K.TILE)
         nc = 6 if g2k else 3
         return (label, rows, lanes, lambda: K.sum_rows(pts),
-                lambda: K.sum_rows_plain(pts), err_flat,
+                Plain("sum_rows_plain", pts), err_flat,
                 (need / lanes, code_sum(rows, lanes, add["products"]) / lanes),
                 rows * nc * limb_words * (1 + 1 / lanes),
                 dict(chain(kind, add), threads_per_add=w,
@@ -2141,37 +2901,37 @@ def main():
             k2_shape("scalar_mul_fixed", 1 - X, pad, pj, "1-x at N")]),
         ("miller_loop", "miller.cu", 1058, "K3", ("k_miller",), [
             ("2N pairs", None, 2 * pad, lambda: K.miller_loop(mx, my, mq),
-             lambda: K.miller_loop_plain(mx, my, mq),
+             Plain("miller_loop_plain", mx, my, mq),
              lambda a, b: err(leaves(a), leaves(b)),
              (need_miller(xbits), code_group(group_counts["miller"])), 18,
              chain("miller")),
             ("2 pairs", None, 2, lambda: K.miller_loop(*m2),
-             lambda: K.miller_loop_plain(*m2),
+             Plain("miller_loop_plain", *m2),
              lambda a, b: err(leaves(a), leaves(b)),
              (need_miller(xbits), code_group(group_counts["miller"])), 18,
              chain("miller")),
             ("7 pairs, zero and one lanes (check)", None, 7,
-             lambda: K.miller_loop(*m7), lambda: K.miller_loop_plain(*m7),
+             lambda: K.miller_loop(*m7), Plain("miller_loop_plain", *m7),
              lambda a, b: err(leaves(a), leaves(b)),
              (need_miller(xbits), code_group(group_counts["miller"])), 18,
              chain("miller"))]),
         ("final_exponentiation", "finalexp.cu", 1093, "K4", ("k_finalexp",), [
             ("N lanes, last two zero and one", None, pad,
              lambda: K.final_exponentiation(fe),
-             lambda: K.final_exponentiation_plain(fe),
+             Plain("final_exponentiation_plain", fe),
              lambda a, b: err(leaves(a), leaves(b)),
              (need_finalexp(xbits, HF.FROB, P),
               code_group(group_counts["finalexp"])), 24,
              chain("finalexp")),
             ("1 lane", None, 1, lambda: K.final_exponentiation(fe1),
-             lambda: K.final_exponentiation_plain(fe1),
+             Plain("final_exponentiation_plain", fe1),
              lambda a, b: err(leaves(a), leaves(b)),
              (need_finalexp(xbits, HF.FROB, P),
               code_group(group_counts["finalexp"])), 24,
              chain("finalexp")),
             ("5 lanes, zero and one (check)", None, 5,
              lambda: K.final_exponentiation(fe5),
-             lambda: K.final_exponentiation_plain(fe5),
+             Plain("final_exponentiation_plain", fe5),
              lambda a, b: err(leaves(a), leaves(b)),
              (need_finalexp(xbits, HF.FROB, P),
               code_group(group_counts["finalexp"])), 24,
@@ -2210,6 +2970,8 @@ def main():
     for tag in ("g1", "g2"):
         ran.update(thr[tag]["paths"])
     ran.update(dkg["paths"])
+    ran.update(beacon["paths"])
+    groups = {"dkg": set(dkg["paths"]), "beacon": set(beacon["paths"])}
 
     # Every other shape a path launched (the threshold paths' widths, and
     # all of K6) gets inputs made here: random field elements, the points
@@ -2318,7 +3080,7 @@ def main():
         ops = need_h1(count, c["digest_blocks"])
         return (label, kind, lanes,
                 lambda: K.hash_to_field(kind, c["msg"], c["dst"], count),
-                lambda: K.hash_to_field_plain(kind, c["msg"], c["dst"],
+                Plain("hash_to_field_plain", kind, c["msg"], c["dst"],
                                               count),
                 lambda a, b: err(a, b), (ops, ops), c["words"],
                 {"entry": "k_h2f", "compressions_per_lane":
@@ -2344,14 +3106,14 @@ def main():
                  (rand_fp_dev(lanes), rand_fp_dev(lanes)))
             return (f"{lanes} pairs", key, lanes,
                     lambda: K.miller_loop(px, py, q),
-                    lambda: K.miller_loop_plain(px, py, q),
+                    Plain("miller_loop_plain", px, py, q),
                     lambda a, b: err(leaves(a), leaves(b)),
                     (need_miller(xbits), code_group(group_counts["miller"])),
                     18, chain("miller"))
         if kname == "final_exponentiation":
             f = T.fp12_pack([rand_fp_dev(lanes) for _ in range(12)])
             return (label, key, lanes, lambda: K.final_exponentiation(f),
-                    lambda: K.final_exponentiation_plain(f),
+                    Plain("final_exponentiation_plain", f),
                     lambda a, b: err(leaves(a), leaves(b)),
                     (need_finalexp(xbits, HF.FROB, P),
                      code_group(group_counts["finalexp"])), 24,
@@ -2390,7 +3152,7 @@ def main():
             dbl, add = _imad(2, 5), _imad(11, 5)
         return (label or f"{nbits} bits at {lanes}", nbits, lanes,
                 lambda: K.scalar_mul_bits(pts, bits),
-                lambda: K.scalar_mul_bits_plain(pts, bits), err_flat,
+                Plain("scalar_mul_bits_plain", pts, bits), err_flat,
                 (need_ladder_var(bits, dbl, add) / lanes,
                  code_group(counts)), (12 if g2 else 6) + nbits / 12,
                 chain(kind, counts))
@@ -2470,11 +3232,23 @@ def main():
                if c["shape"].startswith("raw_chained")):
         fail("no path launched H1 on the raw chained front")
 
+    # Every shape's plain twin, the narrow ones that one call can run
+    # together joined (Plain, run_plain): run apart they took some 550 s
+    # of an 845 s run on the H100
+    jobs = [(kname, i) for kname, *_, shapes in specs
+            for i in range(len(shapes))]
+    t0 = time.perf_counter()
+    plain_out, plain_calls = run_plain(
+        [by_name[kname][i][4] for kname, i in jobs], torch.cuda.synchronize)
+    plains = dict(zip(jobs, plain_out))
+    plain_wall_s = time.perf_counter() - t0
+
     table, checks, path_ms = [], {}, {p: 0.0 for p in ran}
     for kname, src, line, tpu, needles, shapes in specs:
         ms = pms = ops_ms = bytes_ms = code_ms = 0.0
         max_err, detail = 0, []
-        for label, key, lanes, kfn, pfn, cmp, imads, words, *extra in shapes:
+        for i, (label, key, lanes, kfn, pfn, cmp, imads, words,
+                *extra) in enumerate(shapes):
             counts = {p: sh.get((kname, key, lanes), 0)
                       for p, (_, sh) in ran.items()}
             count = sum(counts.values())
@@ -2484,7 +3258,7 @@ def main():
                 torch.cuda.synchronize()
             except RuntimeError as e:
                 fail(f"{kname} at {label}: {e}")
-            p_out, p_ms = plain_run(pfn)
+            p_out, p_ms, p_lanes = plains[(kname, i)]
             e = cmp(k_out, p_out)
             checks[f"{kname} {label}"] = e
             max_err = max(max_err, e)
@@ -2513,6 +3287,7 @@ def main():
                 path_ms[p] += c * k_ms
             detail.append({"shape": label, "lanes": lanes, "launches": counts,
                            "ms": k_ms, "plain_ms": p_ms,
+                           "plain_call_lanes": p_lanes,
                            "bound_ms": max(o_ms, b_ms), "code_ops_ms": c_ms,
                            "imads_per_lane": imads[0],
                            "code_imads_per_lane": imads[1],
@@ -2521,27 +3296,44 @@ def main():
         if sum(sum(d["launches"].values()) for d in detail) != launched:
             fail(f"{kname}: per-shape launches {detail} do not add up to "
                  f"{launched}")
+        of_which = {g: {"launches": sum(c for d in detail
+                                        for p, c in d["launches"].items()
+                                        if p in ps),
+                        "ms": sum(c * d["ms"] for d in detail
+                                  for p, c in d["launches"].items()
+                                  if p in ps)}
+                    for g, ps in groups.items()}
         table.append({
             "name": kname, "tpu_kernel": tpu, "route": "cuda",
             "source": f"drand_tpu_torch/ops/csrc/{src}",
             "replaces": line if isinstance(line, str)
             else f"drand_tpu/ops/pallas_field.py:{line}",
-            "launches": launched, "max_abs_err": max_err,
+            "launches": launched, "of_which": of_which,
+            "max_abs_err": max_err,
             "ms": ms, "plain_ms": pms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None, "code_ops_ms": code_ms,
+            "plain_ms_taken": "a shape's plain_ms is the wall of the "
+                              "plain call that ran it, alone or joined with "
+                              "narrow shapes of the same arguments up to "
+                              f"{PLAIN_JOIN_LANES} lanes (plain_call_lanes)",
             "times_are": f"sums over the launches of the main paths: the "
                          f"RLC runs and exact passes at {n} rounds of both "
                          f"signature groups, the threshold phases at {nrp} "
                          f"rounds x {THRESHOLD} partials, the dkg phase's "
                          f"paths ({DKG_N} dealers x {DKG_T} on both key "
-                         f"groups, the {CEREMONY_N}-node ceremony)",
+                         f"groups, the {CEREMONY_N}-node ceremony), the "
+                         f"beacon phases' networks ({N_NODES} nodes, t = "
+                         f"{THRESHOLD}: (1, {N_NODES}) partials checks, "
+                         f"{BEACON_CHUNK}-round sync and scan chunks)",
             "per_shape": detail,
             "ptxas": entry_stats(regs, src, *needles),
             "group": group_layout.get(kname),
             "device": name, "nvidia_smi": smi_line})
     emit({"phase": "kernels_vs_plain", "tolerance": "exact (integer "
           "arithmetic): max |kernel - plain| over 16-bit limbs",
+          "plain_twins_wall_s": plain_wall_s, "plain_calls": plain_calls,
+          "shapes": len(jobs),
           "max_abs_err": checks})
     if any(v != 0 for v in checks.values()):
         fail(f"a kernel disagrees with its plain version: {checks}")

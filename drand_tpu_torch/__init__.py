@@ -18,6 +18,13 @@ of it and never imports jax.  Layout mirrors the JAX package:
       its pool of CUDA devices, with crypto/tuning.py, crypto/hostverify.py
       (the host fallback, crypto/host/pairing.py), metrics.py, common.py
       and beacon/clock.py
+  crypto/dkg.py, crypto/dkg_device.py, crypto/schnorr.py
+      the DKG and reshare state machine and its device seams
+  chain/, beacon/, key/, net/resilience.py, crypto/vault.py,
+  crypto/host/tbls.py
+      the beacon layer: chain stores and the integrity scanner, the round
+      loop (Handler, the aggregator checking a round's partials on the
+      card), catch-up sync and repair, keys and groups, peer resilience
   convert.py
       moves state between the JAX package and the port (tests)
 
@@ -26,7 +33,9 @@ Entry points, each on CUDA unless the caller passes ``device="cpu"``:
 ``crypto.batch.sign_batch(scheme, secret, msgs, device=None)``,
 ``crypto.batch.recover_batch(scheme, indices, partial_sigs, device=None)``
 and ``crypto.partials.BatchPartialVerifier(scheme, pub_poly, n_nodes,
-device=None)``, and ``crypto.verify_service.VerifyService().handle(scheme,
+device=None)``, ``crypto.verify_service.VerifyService().handle(scheme,
 public_key_bytes)`` (its pool enumerates the cards; a pool with no device
-raises for a device handle).
+raises for a device handle), and ``beacon.Handler(beacon.HandlerConfig(...))``
+(its partial checks through ``beacon.node.device_verifier_factory`` unless
+the config names another factory).
 """

@@ -1,11 +1,12 @@
-"""Threshold BLS on the host: Shamir shares, partial signatures, Lagrange
-coefficients.
+"""Threshold BLS on the host: Shamir shares, partial signatures, their
+verification and Lagrange recovery.
 
-The port's own copy of the host parts of drand_tpu/crypto/tbls.py (kyber
-sign/tbls wire format): a partial signature is be16(share index) || BLS
-signature, and share index i is the polynomial evaluated at x = i + 1.
-The port has no host pairing, so partial verification and recovery run
-only batched on the device (crypto/partials.py, crypto/batch.py).
+The port's own copy of drand_tpu/crypto/tbls.py (kyber sign/tbls wire
+format): a partial signature is be16(share index) || BLS signature, and
+share index i is the polynomial evaluated at x = i + 1.  Verification and
+recovery here are one signature at a time with the pure-Python pairing
+(`Scheme.verify`): the beacon layer's host path.  The batched ones run on
+the device (crypto/partials.py, crypto/batch.py).
 """
 
 import secrets
@@ -117,3 +118,48 @@ def _lagrange_coeff(indices: Sequence[int], i: int) -> int:
         num = num * xj % R
         den = den * ((xj - xi) % R) % R
     return num * pow(den, R - 2, R) % R
+
+
+def verify_partial(scheme, pub_poly: PubPoly, msg: bytes,
+                   partial: bytes) -> bool:
+    """tbls.VerifyPartial: check against the index's public share."""
+    idx = index_of(partial)
+    if idx >= 1 << 15:
+        return False
+    return scheme.verify(pub_poly.eval(idx), msg, partial[2:])
+
+
+def recover(scheme, pub_poly: PubPoly, msg: bytes, partials: Sequence[bytes],
+            threshold: int, n: int, verify_each: bool = True) -> bytes:
+    """tbls.Recover: Lagrange interpolation in the exponent of the first
+    `threshold` valid partials with distinct signer indices (kyber's
+    processed map: a repeated index is skipped).  Returns the unique full
+    signature, what the collective secret would have produced; raises
+    ValueError below `threshold` valid partials."""
+    good = []
+    seen = set()
+    for p in partials:
+        idx = index_of(p)
+        if idx in seen:
+            continue
+        if verify_each and not verify_partial(scheme, pub_poly, msg, p):
+            continue
+        seen.add(idx)
+        good.append(p)
+        if len(good) == threshold:
+            break
+    if len(good) < threshold:
+        raise ValueError(f"not enough valid partials: {len(good)} < "
+                         f"{threshold}")
+    indices = [index_of(p) for p in good]
+    g = scheme.sig_group.curve
+    acc = None
+    for p in good:
+        pt = scheme.sig_group.from_bytes(p[2:])
+        acc = g.add(acc, g.mul(pt, _lagrange_coeff(indices, index_of(p))))
+    return scheme.sig_group.to_bytes(acc)
+
+
+def verify_recovered(scheme, public_key, msg: bytes, sig: bytes) -> bool:
+    """tbls.VerifyRecovered: plain BLS verify against the collective key."""
+    return scheme.verify(public_key, msg, sig)

@@ -131,3 +131,8 @@ def scheme_from_name(name: str) -> Scheme:
         return _SCHEMES[name]
     except KeyError:
         raise ValueError(f"scheme {name!r} is not ported") from None
+
+
+def get_scheme_by_id_with_default(id_: str = "") -> Scheme:
+    """The scheme of a group file's SchemeID; "" is the default chain's."""
+    return scheme_from_name(id_ or DEFAULT_SCHEME_ID)

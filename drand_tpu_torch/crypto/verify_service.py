@@ -366,7 +366,7 @@ class _PartialLaneVerifier:
             lambda: self.inner.verify(msg, partials), lane=LANE_LIVE)
         try:
             # bounded by the service watchdog + stop(), like verify_batch
-            return fut.result()
+            out = fut.result()
         except Exception:
             if self._fallback_factory is None:
                 raise
@@ -375,7 +375,13 @@ class _PartialLaneVerifier:
             fb = self._fallback
             fut = self.service.submit_call(
                 lambda: fb.verify(msg, partials), lane=LANE_LIVE)
-            return fut.result()
+            out = fut.result()
+            if getattr(fb, "kind", "host") == "host":
+                self.service._note_host_served()
+            return out
+        if self.kind == "host":
+            self.service._note_host_served()
+        return out
 
 
 class VerifyService:
@@ -458,6 +464,7 @@ class VerifyService:
         self._failovers = 0
         self._promotions = 0
         self._watchdog_trips = 0
+        self._host_served = 0       # chunks and partial checks the host ran
         self._migrations = 0        # group→sibling backend rebuilds
         self._sharded_dispatches = 0    # pool-wide huge-batch dispatches
         self._concurrent_max = 0    # most streams mid-dispatch at once
@@ -1162,6 +1169,8 @@ class VerifyService:
                 self._account(batch.lane, hi - lo, hi - lo,
                               self.clock.monotonic() - t0, slot=slot,
                               gid=batch.gid, sharded=batch.sharded)
+                if getattr(backend, "kind", "host") == "host":
+                    self._note_host_served()
                 self._stash_sample(slot, rounds, sigs, prevs, results, lo)
         return results, errors
 
@@ -1919,6 +1928,10 @@ class VerifyService:
             except Exception:
                 pass        # accounting must never cost the dispatch
 
+    def _note_host_served(self) -> None:
+        with self._cond:
+            self._host_served += 1
+
     def _account_pack(self, lane: str, elapsed: float) -> None:
         """The pack third of the pack|queue|device latency split: host
         packing wall time per chunk (packer thread) — the term the
@@ -1968,6 +1981,11 @@ class VerifyService:
                 "failovers": self._failovers,
                 "promotions": self._promotions,
                 "watchdog_trips": self._watchdog_trips,
+                # chunks and aggregation-time partial checks served by a
+                # host backend (a host handle, a failover's fallback, a
+                # host partial verifier): 0 where every check ran on the
+                # card
+                "host_served": self._host_served,
                 "backends": {s.label: s.state
                              for s in self._slots.values()},
                 "fill_ratio": (self._dispatch_lanes /

@@ -1,9 +1,12 @@
-"""The verify service's metrics, kept in process, with no prometheus_client.
+"""The port's metrics, kept in process, with no prometheus_client.
 
-The port's counterpart of the ``verify_*`` series of drand_tpu/metrics.py
-(the resident verify service, its failure domain and the device pool): the
-same series names, label names and help text, so a dashboard built on the
-JAX daemon reads the port's scrape unchanged.  The machines the port runs on
+The port's counterpart of the series of drand_tpu/metrics.py that its
+modules touch: the ``verify_*`` series (the resident verify service, its
+failure domain and the device pool) in the "private" registry, and the
+resilience (``resilience_*``) and chain-integrity (``chain_integrity_*``)
+series in the "group" registry, as the reference splits them.  The same
+series names, label names and help text, so a dashboard built on the JAX
+daemon reads the port's scrape unchanged.  The machines the port runs on
 need not have ``prometheus_client``, so the counters, gauges and histograms
 here are plain objects with the client's spelling (``.labels(...)``, then
 ``.inc()`` / ``.set()`` / ``.observe()``; ``.remove(...)`` raises KeyError
@@ -46,6 +49,8 @@ class Registry:
 
 
 PRIVATE = Registry()
+GROUP = Registry()
+_REGISTRIES = {"private": PRIVATE, "group": GROUP}
 
 
 def _fmt(v) -> str:
@@ -70,13 +75,13 @@ def _labels(pairs) -> str:
 class _Metric:
     kind = "untyped"
 
-    def __init__(self, name: str, doc: str, labelnames=()):
+    def __init__(self, name: str, doc: str, labelnames=(), registry=None):
         self.name = name
         self.doc = doc
         self.labelnames = tuple(labelnames)
         self._lock = threading.Lock()
         self._children = {}
-        PRIVATE.register(self)
+        (registry or PRIVATE).register(self)
 
     def labels(self, *values):
         if len(values) != len(self.labelnames):
@@ -174,10 +179,10 @@ class Histogram(_Metric):
     kind = "histogram"
 
     def __init__(self, name: str, doc: str, labelnames=(),
-                 buckets=DEFAULT_BUCKETS):
+                 buckets=DEFAULT_BUCKETS, registry=None):
         bs = tuple(sorted(float(b) for b in buckets))
         self.buckets = bs if bs[-1] == math.inf else bs + (math.inf,)
-        super().__init__(name, doc, labelnames)
+        super().__init__(name, doc, labelnames, registry)
 
     def _child(self):
         return _HistogramValue(self.buckets)
@@ -187,11 +192,38 @@ class Histogram(_Metric):
 
 
 def scrape(which: str = "private") -> bytes:
-    """The Prometheus text of a registry (the port keeps one, "private",
-    where drand_tpu/metrics.py puts these series)."""
-    if which != "private":
-        raise ValueError(f"unknown registry {which!r}")
-    return PRIVATE.scrape()
+    """The Prometheus text of a registry ("private" or "group", where
+    drand_tpu/metrics.py puts these series)."""
+    try:
+        return _REGISTRIES[which].scrape()
+    except KeyError:
+        raise ValueError(f"unknown registry {which!r}") from None
+
+
+# -- label cardinality control (drand_tpu/metrics.py registered_label):
+# naturally unbounded values (peer addresses) pass through
+# registered_label(), which admits the first `limit` distinct values of a
+# namespace and folds the rest into `fallback`.
+
+_label_sets = {}
+_label_lock = threading.Lock()
+
+
+def registered_label(value, known=None, ns: str = "default",
+                     limit: int = 64, fallback: str = "other") -> str:
+    """Bound a metric label value: with `known`, membership decides;
+    without it, the first `limit` values of `ns` are kept."""
+    v = str(value)
+    if known is not None:
+        return v if v in known else fallback
+    with _label_lock:
+        seen = _label_sets.setdefault(ns, set())
+        if v in seen:
+            return v
+        if len(seen) < limit:
+            seen.add(v)
+            return v
+    return fallback
 
 
 # Resident verify service (crypto/verify_service.py): every verify consumer
@@ -259,3 +291,45 @@ verify_probe_latency = Histogram(
     "verify_service_probe_latency_seconds",
     "Canary probe dispatch latency on a degraded device backend",
     ["chain"])
+
+# Resilience layer (net/resilience.py): per-peer circuit breakers and the
+# retry/deadline executor.  `resilience_breaker_state` is 0 closed / 1 open /
+# 2 half-open; transitions carry the target state as a label.
+breaker_state = Gauge(
+    "resilience_breaker_state",
+    "Per-peer circuit breaker state (0 closed, 1 open, 2 half-open)",
+    ["scope", "address"], registry=GROUP)
+breaker_transitions = Counter(
+    "resilience_breaker_transitions_total",
+    "Circuit breaker state transitions", ["scope", "address", "state"],
+    registry=GROUP)
+retries_total = Counter(
+    "resilience_retries_total", "Retry attempts after a failed call",
+    ["scope", "op"], registry=GROUP)
+deadline_exceeded_total = Counter(
+    "resilience_deadline_exceeded_total",
+    "Operations abandoned because their overall budget was spent",
+    ["scope", "op"], registry=GROUP)
+# Chain-integrity subsystem (chain/integrity.py, beacon/sync.py heal):
+# `verifier` is host|device, what the scan's verifier ran on.
+integrity_beacons_scanned = Counter(
+    "chain_integrity_beacons_scanned_total",
+    "Beacon rounds examined by integrity scans",
+    ["beacon_id", "verifier", "trigger"], registry=GROUP)
+integrity_corrupt_found = Counter(
+    "chain_integrity_corrupt_found_total",
+    "Corrupt/missing rounds flagged by integrity scans",
+    ["beacon_id", "kind", "trigger"], registry=GROUP)
+integrity_quarantined = Counter(
+    "chain_integrity_quarantined_total",
+    "Corrupt rounds deleted (quarantined) pending re-fetch",
+    ["beacon_id"], registry=GROUP)
+integrity_repaired = Counter(
+    "chain_integrity_repaired_total",
+    "Quarantined/missing rounds re-fetched, re-verified and restored",
+    ["beacon_id"], registry=GROUP)
+integrity_promoted = Counter(
+    "chain_integrity_promoted_total",
+    "Tombstoned rows re-verified against a restored anchor and promoted "
+    "back without a peer re-fetch",
+    ["beacon_id"], registry=GROUP)
