@@ -1265,10 +1265,12 @@ class Plain:
 
     Every plain twin is lane-wise (K7's: row-wise, a row's lanes summing),
     and at small widths its time is launch-bound Python (some 1-40 s a
-    shape on the H100), so `run_plain` runs the twins that share a
-    function, its non-tensor arguments, the nesting and every shape off the
-    lane axis as one call over their lanes joined, up to PLAIN_JOIN_LANES
-    lanes, and hands each its own lanes of the output."""
+    shape on the H100), so `run_plain` runs the twins of one kernel that
+    share a function, its non-tensor arguments, the nesting and every
+    shape off the lane axis as one call over their lanes joined, up to
+    PLAIN_JOIN_LANES lanes, and hands each its own lanes of the output.
+    A joined call's wall is the time of all its twins together: no twin's
+    own time is taken from it."""
 
     def __init__(self, fn, *args):
         self.fn, self.args = fn, args
@@ -1300,14 +1302,16 @@ class Plain:
                                   for i, a in enumerate(self.args))
 
 
-def run_plain(plains, sync):
-    """[Plain] -> ([(output, wall ms of its call, lanes of its call)],
-    calls made): joinable twins (Plain.key) share a call up to
-    PLAIN_JOIN_LANES lanes, each call timed with `sync`."""
+def run_plain(plains, sync, tags=None):
+    """[Plain] -> ([(output, index of its call)], [{"ms", "lanes",
+    "members"}] one a call): joinable twins with the same tag (Plain.key;
+    a kernel's name) share a call up to PLAIN_JOIN_LANES lanes, each call
+    timed once with `sync`; "members" are the indices of its twins."""
     import torch
+    tags = tags or [None] * len(plains)
     groups = {}
     for j, p in enumerate(plains):
-        groups.setdefault(p.key(), []).append(j)
+        groups.setdefault((tags[j], p.key()), []).append(j)
     calls = []
     for idx in groups.values():
         part, total = [], 0
@@ -1319,8 +1323,8 @@ def run_plain(plains, sync):
             part.append(j)
             total += n
         calls.append(part)
-    out = [None] * len(plains)
-    for idx in calls:
+    out, walls = [None] * len(plains), []
+    for c, idx in enumerate(calls):
         ps = [plains[j] for j in idx]
         args = [_join([p.args[i] for p in ps], ps[0].axis(i))
                 for i in range(len(ps[0].args))]
@@ -1330,13 +1334,15 @@ def run_plain(plains, sync):
         sync()
         ms = (time.perf_counter() - t0) * 1e3
         sizes = [p.lanes() for p in ps]
+        walls.append({"ms": ms, "lanes": sum(n or 0 for n in sizes),
+                      "members": list(idx)})
         lo = 0
         for j, n in zip(idx, sizes):
             out[j] = (_tree_map(lambda t, lo=lo, n=n: t[lo:lo + n]
                                 if isinstance(t, torch.Tensor) else t, res),
-                      ms, sum(sizes))
+                      c)
             lo += n
-    return out, len(calls)
+    return out, walls
 
 
 def _join(parts, ax):
@@ -1364,14 +1370,11 @@ BEACON_FORGE_AT = 3          # the live round with a forged partial
 BEACON_FORGER = 4            # the signer index that forges it
 BEACON_WAIT_S = 600          # real seconds a node may take to store a round
 # 13 daemons share one interpreter and one card here.  A (1, 13) partials
-# pass is thousands of short torch calls on the card's default stream:
-# twelve of them at once from twelve threads took 47 s (G1) and 102 s
-# (G2) against 5.3 s and 15.1 s taking turns (one (1, 13) pass alone 0.32
-# / 1.22 s; H100, tools/torch_beacon_contention.py), so the nodes'
-# checks, syncs and scans take turns on the card (BeaconNet.card).  With
-# the host's
-# recover + verify_beacon beside them, a 1 ms GIL switch interval beat
-# 5 ms on G2 (17.1 against 21.1 s a round) and 0.1 ms lost on both.
+# pass is thousands of short torch calls on the card's default stream, and
+# twelve of them at once from twelve threads ran several times slower on
+# the H100 than the same twelve in turns (PERF.md), so the nodes' checks,
+# syncs and scans take turns on the card (BeaconNet.card), with the
+# interpreter switching threads every BEACON_SWITCH_S.
 BEACON_SWITCH_S = 1e-3
 # League of Entropy: quicknet (bls-unchained-on-g1) a round every 3 s from
 # 1692803367, the default chain (pedersen-bls-chained) every 30 s from
@@ -1380,26 +1383,15 @@ QUICKNET_PERIOD, QUICKNET_GENESIS = 3, 1_692_803_367
 DEFAULT_PERIOD, DEFAULT_GENESIS = 30, 1_595_431_050
 
 
-class _PeerStream:
-    """A peer's SyncChainServer stream as a transport hands it out: an
-    iterator with cancel(), which ends the server's live-follow loop."""
-
-    def __init__(self, server, remote, from_round):
-        self._stop = threading.Event()
-        self._gen = server.stream(remote, from_round, stop=self._stop)
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        return next(self._gen)
-
-    def cancel(self):
-        self._stop.set()
-        try:
-            self._gen.close()       # a suspended stream unregisters now
-        except ValueError:
-            pass                    # running in a pump thread: it sees stop
+def _beacon_harness():
+    """tests/torch_beacon_harness.py, the port's in-process network
+    (LocalNetwork, PeerStream), which the CPU tests drive too."""
+    import importlib
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    return importlib.import_module("torch_beacon_harness")
 
 
 class _Timed:
@@ -1450,19 +1442,19 @@ class BeaconNet:
     """n nodes of one t-of-n group in one process, each wired as
     core/beacon_process.py:395-440 wires a daemon: its own VerifyService on
     the card (pad `chunk`), partials checked through
-    ``partials_factory(factory)`` with no host fallback, a SyncChainServer,
-    and a SyncManager over the service's handle whose fetch streams from a
-    peer's server.  Partials travel by synchronous in-process delivery
-    (tests/harness.py's LocalNetwork); time is one FakeClock."""
+    ``partials_factory(device_verifier_factory)`` with no host fallback, a
+    SyncChainServer, and a SyncManager over the service's handle whose
+    fetch streams from a peer's server.  Partials travel by synchronous in-process delivery
+    (tests/torch_beacon_harness.py's LocalNetwork, which can drop nodes);
+    time is one FakeClock."""
 
     def __init__(self, scheme, poly, n, t, period, genesis, clock, chunk,
-                 factory, handle=None, seed=b"beacon"):
+                 seed=b"beacon"):
         from drand_tpu_torch.key import DistPublic, Share, new_group, \
             new_keypair
         self.scheme, self.poly, self.n, self.t = scheme, poly, n, t
         self.period, self.clock, self.chunk = period, clock, chunk
-        self.factory = factory
-        self.handle = handle or (lambda svc, s, pk: svc.handle(s, pk))
+        self.net = _beacon_harness().LocalNetwork()
         pairs = [new_keypair(f"node{i}", scheme, seed=seed + b"%d" % i)
                  for i in range(n)]
         self.group = new_group([p.public for p in pairs], t, genesis=genesis,
@@ -1475,7 +1467,7 @@ class BeaconNet:
         self.pk = self.commits[0]
         self.shares = {i: Share(scheme=scheme, private=poly.eval(i),
                                 commits=self.commits) for i in range(n)}
-        self.nodes, self.services, self.down = {}, {}, set()
+        self.nodes, self.services = {}, {}
         self.log, self.errors = [], []
         self.card = threading.Lock()
         self._streams = 0           # a stream's remote address is unique,
@@ -1485,6 +1477,7 @@ class BeaconNet:
         """Build node i over `store` (its service survives a restart)."""
         from types import SimpleNamespace
         from drand_tpu_torch.beacon import Handler, HandlerConfig
+        from drand_tpu_torch.beacon.node import device_verifier_factory
         from drand_tpu_torch.beacon.sync import SyncChainServer, SyncManager
         from drand_tpu_torch.crypto.verify_service import VerifyService
         svc = self.services.get(i)
@@ -1497,12 +1490,14 @@ class BeaconNet:
                 node.syncm.send_sync_request(target)
 
         timed = lambda s, p, k, i=i: _Timed(  # noqa: E731
-            self.factory(s, p, k), self.card, self.log, i, self.errors)
+            device_verifier_factory(s, p, k), self.card, self.log, i,
+            self.errors)
         node.handler = Handler(HandlerConfig(
             group=self.group, share=self.shares[i], index=i, store=store,
             clock=self.clock, verifier_factory=svc.partials_factory(timed),
-            broadcast=self.broadcaster(i), on_sync_needed=on_sync_needed))
-        node.handle = self.handle(svc, self.scheme, self.pk)
+            broadcast=self.net.broadcaster(i),
+            on_sync_needed=on_sync_needed))
+        node.handle = svc.handle(self.scheme, self.pk)
         _take_turns(node.handle.backend, self.card)
         node.server = SyncChainServer(node.handler.chain)
         node.syncm = SyncManager(
@@ -1513,31 +1508,18 @@ class BeaconNet:
         node.syncm.start()
         with self._lock:
             self.nodes[i] = node
-            self.down.discard(i)
+        self.net.register(i, node.handler)
         return node
-
-    def broadcaster(self, sender):
-        def broadcast(packet):
-            with self._lock:
-                targets = [nd.handler for j, nd in self.nodes.items()
-                           if j != sender and j not in self.down
-                           and sender not in self.down]
-            for h in targets:
-                try:
-                    h.process_partial_beacon(packet)
-                except ValueError:
-                    pass
-        return broadcast
 
     def fetch_for(self, i):
         def fetch(peer, from_round):
             with self._lock:
                 nd = self.nodes.get(peer)
-                if nd is None or peer in self.down:
+                if nd is None or peer in self.net.down:
                     raise ConnectionError(f"node{peer} is down")
                 self._streams += 1
                 remote = f"node{i}:{self._streams}"
-            return _PeerStream(nd.server, remote, from_round)
+            return _beacon_harness().PeerStream(nd.server, remote, from_round)
         return fetch
 
     def forge(self, round_, prev):
@@ -1551,7 +1533,7 @@ class BeaconNet:
         msg = self.scheme.digest_beacon(round_, prev)
         other = tbls.sign_partial(self.scheme, self.poly.eval(f + 1), msg)
         forged = f.to_bytes(2, "big") + other[2:]
-        self.broadcaster(f)(PartialBeaconPacket(
+        self.net.broadcaster(f)(PartialBeaconPacket(
             round=round_, previous_signature=prev, partial_sig=forged))
         return forged
 
@@ -1567,16 +1549,15 @@ class BeaconNet:
             if self.errors or time.perf_counter() > deadline:
                 heads = {j: nd.handler.chain.last().round
                          for j, nd in self.nodes.items()
-                         if j not in self.down}
+                         if j not in self.net.down}
                 fail(f"beacon: node {i} did not store round {round_}: "
                      f"check errors {self.errors[:3]}, heads {heads}, "
                      f"services {self.stats()}, last checks "
                      f"{[(nd, len(p), v, round(w, 2)) for nd, _, p, v, w, _ in self.log[-5:]]}")
 
     def kill(self, i):
-        with self._lock:
-            self.down.add(i)
-            nd = self.nodes[i]
+        self.net.kill(i)
+        nd = self.nodes[i]
         nd.syncm.stop()
         nd.handler.stop()
 
@@ -1605,7 +1586,7 @@ class BeaconNet:
 
     def stop(self):
         for i, nd in self.nodes.items():
-            if i not in self.down:
+            if i not in self.net.down:
                 nd.syncm.stop()
                 nd.handler.stop()
         for svc in self.services.values():
@@ -1615,28 +1596,20 @@ class BeaconNet:
 def beacon_phases(ctx):
     """The beacon phases (module doc): beacon_quicknet and beacon_default.
     Returns {"paths": {path: (launches, shapes)}, "walls": {...}}; the
-    paths' shapes join phase 4.  ctx may shrink the network (beacon_n,
-    beacon_t, beacon_chain, beacon_live, beacon_chunk) and swap the
-    partial-verifier factory and the handle (beacon_factory,
-    beacon_handle) for a rehearsal without a card."""
+    paths' shapes join phase 4."""
     import shutil
     import tempfile
     torch, K, B = ctx["torch"], ctx["K"], ctx["B"]
     schemes, HT, R, rng = ctx["schemes"], ctx["HT"], ctx["R"], ctx["rng"]
     name, smi_line = ctx["name"], ctx["smi_line"]
-    n, t = ctx.get("beacon_n", N_NODES), ctx.get("beacon_t", THRESHOLD)
-    head = ctx.get("beacon_chain", BEACON_CHAIN)
-    live = ctx.get("beacon_live", BEACON_LIVE)
-    chunk = ctx.get("beacon_chunk", BEACON_CHUNK)
+    n, t, head = N_NODES, THRESHOLD, BEACON_CHAIN
+    live, chunk = BEACON_LIVE, BEACON_CHUNK
     from drand_tpu_torch.beacon.chainstore import HostPartialVerifier
     from drand_tpu_torch.beacon.clock import FakeClock
-    from drand_tpu_torch.beacon.node import device_verifier_factory
     from drand_tpu_torch.chain import (Beacon, MemDBStore, SqliteStore,
                                        genesis_beacon, time_of_round)
     from drand_tpu_torch.chain.integrity import (INVALID_SIG, MISSING,
                                                  UNLINKED)
-    factory = ctx.get("beacon_factory", device_verifier_factory)
-    on_card = factory is device_verifier_factory
     tmp = tempfile.mkdtemp(prefix="chip_smoke_beacon_")
     paths, walls = {}, {}
 
@@ -1711,11 +1684,10 @@ def beacon_phases(ctx):
         bad = [] if agree else ["the nodes' chains differ"]
         if not dropped or len(seen) < n - 2:
             bad.append(f"forged partial: {seen}")
-        if on_card:
-            if any(health.values()):
-                bad.append(f"the services fell back or tripped: {health}")
-            if passes["exact"] < 1:
-                bad.append(f"no exact pass dropped the forgery: {passes}")
+        if any(health.values()):
+            bad.append(f"the services fell back or tripped: {health}")
+        if passes["exact"] < 1:
+            bad.append(f"no exact pass dropped the forgery: {passes}")
         return out, bad
 
     def quicknet():
@@ -1724,8 +1696,7 @@ def beacon_phases(ctx):
         clock = FakeClock(time_of_round(QUICKNET_PERIOD, QUICKNET_GENESIS,
                                         head + 1))
         net = BeaconNet(sch, poly, n, t, QUICKNET_PERIOD, QUICKNET_GENESIS,
-                        clock, chunk, factory, ctx.get("beacon_handle"),
-                        seed=b"quicknet")
+                        clock, chunk, seed=b"quicknet")
         t0 = time.perf_counter()
         msgs = [sch.digest_beacon(r) for r in range(1, head + 1)]
         sigs = B.sign_batch(sch, poly.secret(), msgs)
@@ -1804,7 +1775,7 @@ def beacon_phases(ctx):
         if split["all_valid"] is not True:
             bad.append(f"the one-aggregation split: {split}")
         launches = paths["beacon_quicknet"][0]
-        if on_card and any(launches[k] == 0 for k in G1_RLC_KERNELS):
+        if any(launches[k] == 0 for k in G1_RLC_KERNELS):
             bad.append(f"a kernel of the path was not launched: {launches}")
         walls["beacon_quicknet"] = all_s
         emit({"phase": "beacon_quicknet", "scheme": sch.id, "nodes": n,
@@ -1832,8 +1803,7 @@ def beacon_phases(ctx):
         period = DEFAULT_PERIOD
         clock = FakeClock(DEFAULT_GENESIS - period)
         net = BeaconNet(sch, poly, n, t, period, DEFAULT_GENESIS, clock,
-                        chunk, factory, ctx.get("beacon_handle"),
-                        seed=b"default")
+                        chunk, seed=b"default")
         late = n - 1
         db = os.path.join(tmp, "default.db")
         stores = [MemDBStore(buffer_size=100) for _ in range(late)] \
@@ -1925,7 +1895,7 @@ def beacon_phases(ctx):
         if split["all_valid"] is not True:
             bad.append(f"the one-aggregation split: {split}")
         launches = paths["beacon_default"][0]
-        if on_card and any(launches[k] == 0 for k in G2_RLC_KERNELS):
+        if any(launches[k] == 0 for k in G2_RLC_KERNELS):
             bad.append(f"a kernel of the path was not launched: {launches}")
         walls["beacon_default"] = all_s
         emit({"phase": "beacon_default", "scheme": sch.id, "nodes": n,
@@ -3232,21 +3202,28 @@ def main():
                if c["shape"].startswith("raw_chained")):
         fail("no path launched H1 on the raw chained front")
 
-    # Every shape's plain twin, the narrow ones that one call can run
-    # together joined (Plain, run_plain): run apart they took some 550 s
-    # of an 845 s run on the H100
+    # Every shape's plain twin, the narrow ones of a kernel that one call
+    # can run together joined (Plain, run_plain): run apart they took some
+    # 550 s of an 845 s run on the H100.  Each call's wall is reported once
+    # (plain_calls); a shape has a plain_ms of its own only where its call
+    # held it alone.
     jobs = [(kname, i) for kname, *_, shapes in specs
             for i in range(len(shapes))]
     t0 = time.perf_counter()
-    plain_out, plain_calls = run_plain(
-        [by_name[kname][i][4] for kname, i in jobs], torch.cuda.synchronize)
+    plain_out, walls = run_plain(
+        [by_name[kname][i][4] for kname, i in jobs], torch.cuda.synchronize,
+        tags=[kname for kname, _ in jobs])
     plains = dict(zip(jobs, plain_out))
     plain_wall_s = time.perf_counter() - t0
+    plain_calls = [{"kernel": jobs[w["members"][0]][0], "ms": w["ms"],
+                    "lanes": w["lanes"],
+                    "shapes": [by_name[jobs[j][0]][jobs[j][1]][0]
+                               for j in w["members"]]} for w in walls]
 
     table, checks, path_ms = [], {}, {p: 0.0 for p in ran}
     for kname, src, line, tpu, needles, shapes in specs:
-        ms = pms = ops_ms = bytes_ms = code_ms = 0.0
-        max_err, detail = 0, []
+        ms = once_ms = ops_ms = bytes_ms = code_ms = 0.0
+        max_err, detail, k_calls = 0, [], set()
         for i, (label, key, lanes, kfn, pfn, cmp, imads, words,
                 *extra) in enumerate(shapes):
             counts = {p: sh.get((kname, key, lanes), 0)
@@ -3258,7 +3235,10 @@ def main():
                 torch.cuda.synchronize()
             except RuntimeError as e:
                 fail(f"{kname} at {label}: {e}")
-            p_out, p_ms, p_lanes = plains[(kname, i)]
+            p_out, call = plains[(kname, i)]
+            k_calls.add(call)
+            p_ms = plain_calls[call]["ms"] \
+                if len(plain_calls[call]["shapes"]) == 1 else None
             e = cmp(k_out, p_out)
             checks[f"{kname} {label}"] = e
             max_err = max(max_err, e)
@@ -3279,15 +3259,14 @@ def main():
             o_ms, b_ms = bound_ms(imads[0], lanes, words)
             c_ms = bound_ms(imads[1], lanes, words)[0]
             ms += count * k_ms
-            pms += count * p_ms
+            once_ms += k_ms
             ops_ms += count * o_ms
             bytes_ms += count * b_ms
             code_ms += count * c_ms
             for p, c in counts.items():
                 path_ms[p] += c * k_ms
             detail.append({"shape": label, "lanes": lanes, "launches": counts,
-                           "ms": k_ms, "plain_ms": p_ms,
-                           "plain_call_lanes": p_lanes,
+                           "ms": k_ms, "plain_ms": p_ms, "plain_call": call,
                            "bound_ms": max(o_ms, b_ms), "code_ops_ms": c_ms,
                            "imads_per_lane": imads[0],
                            "code_imads_per_lane": imads[1],
@@ -3310,14 +3289,23 @@ def main():
             else f"drand_tpu/ops/pallas_field.py:{line}",
             "launches": launched, "of_which": of_which,
             "max_abs_err": max_err,
-            "ms": ms, "plain_ms": pms, "bound_ms": max(ops_ms, bytes_ms),
+            "ms": ms, "plain_ms": sum(plain_calls[c]["ms"] for c in k_calls),
+            "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None, "code_ops_ms": code_ms,
-            "plain_ms_taken": "a shape's plain_ms is the wall of the "
-                              "plain call that ran it, alone or joined with "
-                              "narrow shapes of the same arguments up to "
-                              f"{PLAIN_JOIN_LANES} lanes (plain_call_lanes)",
-            "times_are": f"sums over the launches of the main paths: the "
+            "ms_every_shape_once": once_ms,
+            "plain_calls": sorted(k_calls),
+            "plain_ms_taken": "plain_ms is the wall of the plain twin's "
+                              "calls over every shape in per_shape once, "
+                              "each call counted once (plain_calls: the "
+                              "kernels_vs_plain phase's list; narrow shapes "
+                              "of the same arguments joined up to "
+                              f"{PLAIN_JOIN_LANES} lanes); compare it with "
+                              "ms_every_shape_once, the kernel on the same "
+                              "shapes.  A shape's own plain_ms is null where "
+                              "its call held other shapes",
+            "times_are": f"ms, bound_ms and code_ops_ms are sums over the "
+                         f"launches of the main paths: the "
                          f"RLC runs and exact passes at {n} rounds of both "
                          f"signature groups, the threshold phases at {nrp} "
                          f"rounds x {THRESHOLD} partials, the dkg phase's "

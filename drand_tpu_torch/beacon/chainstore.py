@@ -15,9 +15,13 @@ takes a `device` (CUDA unless "cpu", resolved at construction, so without a
 card it raises) and pads its one row to the group's n slots, so every
 aggregation-time check is one `(1, n)` block of
 `crypto.partials.BatchPartialVerifier` whatever the number of unchecked
-partials.
+partials.  The port wires that check with no host fallback
+(`node.device_verifier_factory`), so a check that raises is counted in
+`beacon_partial_check_errors_total` and logged here; the reference
+aggregator drops it unseen, its host fallback having redone the check.
 """
 
+import logging
 import queue
 import threading
 
@@ -32,6 +36,8 @@ from .cache import PartialCache
 from .clock import Clock
 from .stores import (AppendStore, CallbackStore, DiscrepancyStore,
                      ErrBeaconAlreadyStored, SchemeStore)
+
+log = logging.getLogger(__name__)
 
 
 class HostPartialVerifier:
@@ -78,7 +84,8 @@ class DevicePartialVerifier:
 class ChainStore:
     def __init__(self, backend, vault: Vault, clock: Clock, group,
                  on_sync_needed: Optional[Callable[[int], None]] = None,
-                 on_discrepancy=None, partial_verifier=None):
+                 on_discrepancy=None, partial_verifier=None,
+                 beacon_id: str = "default"):
         """`backend`: raw chain.Store; `group`: key.Group (threshold, times).
 
         Decorator assembly mirrors chainstore.go:43-75.  Partials get their
@@ -87,6 +94,7 @@ class ChainStore:
         config's factory builds, DevicePartialVerifier by default)."""
         self.vault = vault
         self.group = group
+        self.beacon_id = beacon_id
         self.backend = backend      # raw store: integrity scans + repair
         self.partial_verifier = partial_verifier or HostPartialVerifier(
             vault.scheme, vault.get_pub())
@@ -244,7 +252,17 @@ class ChainStore:
         # same signer index from being verified and used.
         unchecked = [p for p in rc.partials.values() if p not in rc.checked]
         if unchecked:
-            results = self.partial_verifier.verify(msg, unchecked)
+            try:
+                results = self.partial_verifier.verify(msg, unchecked)
+            except Exception:   # noqa: BLE001 — counted, logged, retried
+                # nothing redoes the check on the host: the round waits
+                # for its next partial, which checks the cache again
+                from ..metrics import partial_check_errors
+                partial_check_errors.labels(self.beacon_id).inc()
+                log.exception("beacon %s: the check of %d partials of "
+                              "round %d failed", self.beacon_id,
+                              len(unchecked), round_)
+                return
             for p, ok in zip(unchecked, results):
                 if ok:
                     rc.checked[p] = True

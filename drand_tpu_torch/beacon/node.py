@@ -70,9 +70,10 @@ def device_verifier_factory(scheme, pub_poly, n_nodes, device=None):
     passes `fallback_factory=_host_verifier_factory`
     (core/beacon_process.py), so a failed device check is redone on the
     host.  The port's wiring passes no fallback: a device failure reaches
-    the aggregator as an error (the round waits for the next partial to
-    retry) and is seen, instead of the round quietly moving to host
-    pairing, which would hide a broken card behind a slower chain."""
+    the aggregator as an error, which counts it
+    (`beacon_partial_check_errors_total`) and logs it, and the round waits
+    for its next partial to retry the check.  Quietly moving the round to
+    host pairing would hide a broken card behind a slower chain."""
     from .chainstore import DevicePartialVerifier
     return DevicePartialVerifier(scheme, pub_poly, n_nodes, device=device)
 
@@ -115,7 +116,8 @@ class Handler:
             cfg.store, self.vault, cfg.clock, cfg.group,
             on_sync_needed=self._sync_needed,
             partial_verifier=cfg.verifier_factory(
-                self.scheme, self.vault.get_pub(), len(cfg.group)))
+                self.scheme, self.vault.get_pub(), len(cfg.group)),
+            beacon_id=cfg.beacon_id)
         self.ticker = Ticker(cfg.clock, cfg.group.period, cfg.group.genesis_time)
         # Fast-forward on each stored beacon (node.go:368-403): while the
         # chain lags the wall-clock round, every new beacon immediately

@@ -333,3 +333,10 @@ integrity_promoted = Counter(
     "Tombstoned rows re-verified against a restored anchor and promoted "
     "back without a peer re-fetch",
     ["beacon_id"], registry=GROUP)
+# The aggregator (beacon/chainstore.py): partial checks that raised.  The
+# port wires the device check with no host fallback, so this is where a
+# broken card shows.
+partial_check_errors = Counter(
+    "beacon_partial_check_errors_total",
+    "Aggregation-time partial checks that raised (the round waits for its "
+    "next partial)", ["beacon_id"], registry=GROUP)

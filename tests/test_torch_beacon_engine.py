@@ -61,3 +61,41 @@ def test_handler_subscribes_before_the_ticker_starts(monkeypatch):
         assert sc.wait_round(0, 1).round == 1
     finally:
         sc.stop_all()
+
+
+def test_a_check_that_raises_is_counted_logged_and_retried(caplog):
+    """With no host fallback behind the partial check, a check that
+    raises is counted in beacon_partial_check_errors_total and logged by
+    the aggregator, and the round completes when its next partial checks
+    the cache again.  Each node's first check (at the second of three
+    partials) raises; the third partial's check stores round 1."""
+    from drand_tpu_torch import metrics
+    from drand_tpu_torch.beacon.chainstore import HostPartialVerifier
+
+    class FailsOnce(HostPartialVerifier):
+        calls = 0
+
+        def verify(self, msg, partials):
+            self.calls += 1
+            if self.calls == 1:
+                raise RuntimeError("the card is gone")
+            return super().verify(msg, partials)
+
+    errors = metrics.partial_check_errors.labels("default")
+    before = errors.value
+    caplog.set_level("ERROR", logger="drand_tpu_torch.beacon.chainstore")
+    sc = H.BeaconScenario(n=3, thr=2, scheme_id="bls-unchained-on-g1",
+                          verifier_factory=lambda s, p, n: FailsOnce(s, p))
+    try:
+        sc.advance_to_genesis()
+        sc.start_all()
+        heads = sc.wait_all(1)
+    finally:
+        sc.stop_all()
+    assert {b.round for b in heads} == {1}
+    assert len({bytes(b.signature) for b in heads}) == 1
+    assert errors.value - before == 3
+    failed = [r for r in caplog.records if "failed" in r.getMessage()]
+    assert len(failed) == 3
+    assert all(r.exc_info and "the card is gone" in str(r.exc_info[1])
+               for r in failed)
