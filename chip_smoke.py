@@ -38,18 +38,19 @@ Threshold partials, t = 7 of n = 13 signers (the JAX package's bench config
                        byte for byte and verifies against the group key.
 
 The verify service (``drand_tpu_torch/crypto/verify_service.py``), its pool
-enumerating the card (one group), serving the first 4096 of the rounds above
-(half the batch since the beacon phases came) through its entry points
-(``VerifyService.handle``, then ``submit`` / ``verify_batch``):
+enumerating the card (one group), serving the first 2048 of the rounds above
+(a quarter of the batch, cut to keep the script inside its limit) through
+its entry points (``VerifyService.handle``, then ``submit`` /
+``verify_batch``):
 
-  verify_service       16 caller threads each submit a 256-round slice of
-                       the G1 chain, then of the chained G2 chain, bad
-                       slots included, in the background lane: one
-                       4096-lane dispatch a chain (fill 1.0), every
+  verify_service       16 caller threads each submit a 128-round slice of
+                       the G1 chain, then of the chained G2 chain, four
+                       bad slots included, in the background lane: one
+                       2048-lane dispatch a chain (fill 1.0), every
                        future's verdicts equal to that slice of the direct
                        ``verify_batch`` mask, every kernel of the chain's
-                       RLC list launched; a catch-up of 8192 G1 rounds
-                       (two 4096 dispatches) while 8 one-round live
+                       RLC list launched; a catch-up of 4096 G1 rounds
+                       (two 2048 dispatches) while 8 one-round live
                        submissions arrive (their latencies, the
                        preemptions); no failover, watchdog trip or host
                        fallback in either; then a failover drill on a
@@ -103,23 +104,48 @@ checked through ``partials_factory(device_verifier_factory)`` with no host
 fallback, a SyncChainServer, a SyncManager over the service's handle
 streaming from a peer's server, a FakeClock):
 
-  beacon_quicknet      ``bls-unchained-on-g1``: 12 nodes hold an 8192-round
+  beacon_quicknet      ``bls-unchained-on-g1``: 12 nodes hold a 1024-round
                        chain signed by one ``sign_batch``; node 13 catches
-                       up from genesis into sqlite (16 chunks of 512 on its
+                       up from genesis into sqlite (2 chunks of 512 on its
                        service's BACKGROUND lane) while the network makes
-                       8 live rounds, one with a forged partial that every
-                       node's exact pass drops;
-  beacon_default       ``pedersen-bls-chained``: 8 rounds from genesis (one
-                       with a forged partial), the sqlite node down for
-                       rounds 5-7 and caught up through sync before round
-                       8, then a bit-flipped and a deleted row in its store: a
-                       full scan on the card finds both, heal restores the
-                       peers' bytes, a second scan is clean;
+                       3 live rounds, the last with a forged partial that
+                       every node's exact pass drops;
+  beacon_default       ``pedersen-bls-chained``: 3 rounds from genesis, the
+                       sqlite node down for round 2 and caught up through
+                       sync before round 3 (which carries a forged
+                       partial), then round 1 bit-flipped and round 2
+                       deleted in its store: a full scan on the card finds
+                       both, heal restores the peers' bytes, a second scan
+                       is clean;
 
 every node's chain byte-equal and verified (on the card and
 ``verify_beacon``), no failover, watchdog trip or host-served check, the
 round walls, the catch-up and scan + heal walls, and one aggregation split
 into the card's check and the host's recovery and ``verify_beacon``.
+
+The public edge (``drand_tpu_torch/http_server.py``, ``client/``,
+``relay.py``): a 1024-round ``pedersen-bls-chained`` chain (the League of
+Entropy default chain's 30 s period: a client 8.5 h behind), signed one
+round a call by the host or a 1-lane ``sign_batch`` (the faster on 4
+rounds; the host signs it in a process of its own while the beacon phases
+run), in a sqlite store behind the port's ``RestServer`` and an
+``AdmissionController``; strict clients (``new_client(From(HttpTransport
+(url)), with_chain_hash(...), with_full_chain_verification())``) walk it
+from genesis, checking the linkage on the host and the whole span in ONE
+submission to the process-default ``VerifyService`` on the card:
+
+  edge_walk            one client's ``get(1024)``: 1024 HTTP gets, one RLC
+                       pass, every verdict true, no host-served check;
+  edge_four_walks      four clients at once (their dispatches coalesce);
+  edge_forged          a copy of the chain with round 700's signature and
+                       round 701's previous signature the same forged
+                       bytes: the linkage holds, the sweep's bisection and
+                       exact pass name exactly rounds 700 and 701;
+
+then ``/health`` carries the service's summary, an ``HttpRelay`` over a
+client of the edge serves ``/public/{r}`` and ``/public/latest`` with the
+store's bytes, and an ``ObjectStoreRelay`` over a ``DirObjectStore``
+uploads 64 rounds that read back equal.
 
 Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
@@ -175,9 +201,10 @@ THRESHOLD_KERNELS = {
            "partials": G2_RLC_KERNELS,
            "recover": ("pow_fixed", "pow_fixed_fp2", "scalar_mul_bits_g2")}}
 THRESHOLD, N_NODES = 7, 13      # bench.py config 3: t = 7 of n = 13
-# the verify_service phase serves rounds[:n // SERVICE_SHARE] (cut from n
-# to fit the beacon phases in the time limit)
-SERVICE_SHARE = 2
+# the verify_service phase serves rounds[:n // SERVICE_SHARE], cut to keep
+# the script well inside its time limit (its walls are its bad slots'
+# bisections, four of them at 2048)
+SERVICE_SHARE = 4
 # bench.py config 3 verifies 2048 rounds a chunk; the threshold phases run
 # 512 since the beacon phases came (their depth, cut to keep the script
 # well inside its time limit)
@@ -1238,11 +1265,12 @@ def dkg_phases(ctx):
 # the arguments of a plain twin whose lanes lie on axis 1 (bit planes)
 _BIT_ARGS = {"scalar_mul_bits_plain": (1,),
              "scalar_mul_glv_mixed_plain": (3, 4)}
-# lanes a joined plain call may hold: up to here a plain twin is
-# launch-bound (on the H100: K3 6.8 s at 2 pairs, 8.0 s at 2048; K4 7.6 s
-# at 1 lane, 8.8 s at 1024), so the joined call costs about what each of
-# its shapes costs alone; a wider shape runs alone
-PLAIN_JOIN_LANES = 4096
+# lanes a joined plain call may hold.  A narrow plain twin is launch-bound
+# (on the H100: K3 6.8 s at 2 pairs, 8.0 s at 2048; K4 7.6 s at 1 lane, 8.8
+# s at 1024), a wide one adds its lanes' device time (K4 36.6 s at 8192), so
+# a joined call costs the launches once and the lanes' time as before: every
+# shape of one key joins (the widest key, K8-G2's, holds some 55,000 lanes)
+PLAIN_JOIN_LANES = 65536
 
 
 def _tree_map(f, x):
@@ -1330,7 +1358,8 @@ def run_plain(plains, sync, tags=None):
                 for i in range(len(ps[0].args))]
         sync()
         t0 = time.perf_counter()
-        res = Plain(ps[0].fn, *args)()
+        with torch.inference_mode():    # no autograd bookkeeping an op
+            res = Plain(ps[0].fn, *args)()
         sync()
         ms = (time.perf_counter() - t0) * 1e3
         sizes = [p.lanes() for p in ps]
@@ -1362,10 +1391,14 @@ def _join(parts, ax):
 # net/resilience.py) as a network of 13 daemons in one process
 # ---------------------------------------------------------------------------
 
-BEACON_CHAIN = 8192          # quicknet rounds the 12 running nodes hold
-BEACON_LIVE = 8              # live rounds each phase produces
+# The beacon phases' depth is cut to keep the script well inside its time
+# limit, every check kept: a live round of 13 nodes taking turns on the card
+# costs some 12 s (quicknet) or 27 s (default) on the H100, and the catch-up
+# shares the card with the live rounds.
+BEACON_CHAIN = 1024          # quicknet rounds the 12 running nodes hold
+BEACON_LIVE = 3              # live rounds each phase produces
 BEACON_CHUNK = 512           # sync and scan chunk (beacon/sync.py's default)
-BEACON_DOWN = 3              # rounds a beacon_default node is down
+BEACON_DOWN = 1              # rounds a beacon_default node is down
 BEACON_FORGE_AT = 3          # the live round with a forged partial
 BEACON_FORGER = 4            # the signer index that forges it
 BEACON_WAIT_S = 600          # real seconds a node may take to store a round
@@ -1848,7 +1881,7 @@ def beacon_phases(ctx):
         # at-rest faults on the revived node's sqlite store, then a full
         # scan on the card, heal from the peers, and a second scan
         raw = nd.handler.chain.backend
-        flip_r, del_r = max(1, head_d // 2 - 1), head_d - 3
+        flip_r, del_r = 1, head_d - 1
         peer_rows = {r: net.nodes[0].handler.chain.backend.get(r).signature
                      for r in (flip_r, del_r)}
         b = raw.get(flip_r)
@@ -1872,8 +1905,9 @@ def beacon_phases(ctx):
         split = one_aggregation(net, head_d + 1, chains[0][-1][1])
         net.stop()
         found = [(f.round, f.kind) for f in report.findings]
-        want = [(flip_r, INVALID_SIG), (flip_r + 1, UNLINKED),
-                (del_r, MISSING), (del_r + 1, UNLINKED)]
+        want = [(flip_r, INVALID_SIG)] + \
+            [(flip_r + 1, UNLINKED)] * (flip_r + 1 < del_r) + \
+            [(del_r, MISSING), (del_r + 1, UNLINKED)]
         restored = {r: dict(chains[late]).get(r) == peer_rows[r]
                     for r in peer_rows}
         out, bad = check_common(log, chains, head_d, forged, passes, st)
@@ -1923,6 +1957,326 @@ def beacon_phases(ctx):
     finally:
         sys.setswitchinterval(switch)
         shutil.rmtree(tmp, ignore_errors=True)
+    return {"paths": paths, "walls": walls}
+
+
+# ---------------------------------------------------------------------------
+# The edge phase: the port's public edge (http_server.py, client/, relay.py)
+# serving a chained chain, and strict clients catching up through it
+# ---------------------------------------------------------------------------
+
+EDGE_ROUNDS = 1024           # 8.5 h of the League of Entropy default chain
+EDGE_CLIENTS = 4             # strict clients walking the span at once
+EDGE_FORGED = 700            # the forged pair: rounds 700 and 701
+EDGE_RELAY_ROUNDS = 64       # rounds the object-store relay uploads
+EDGE_SIGN_PROBE = 4          # rounds signed both ways to pick the signer
+
+
+def _edge_chain_on_host(n, genesis, period):
+    """The edge chain's signatures by the host signer, in round order, and
+    the seconds they took.  Runs in a process of its own (start_edge_chain),
+    so the signing overlaps the beacon phases."""
+    t0 = time.perf_counter()
+    chain = _beacon_harness().MockChain(n=n, genesis=genesis, period=period)
+    return ([chain.beacons[r].signature for r in range(1, n + 1)],
+            time.perf_counter() - t0)
+
+
+def start_edge_chain():
+    """(executor, future of _edge_chain_on_host) in one spawned process;
+    edge_phases takes the result and shuts the executor down."""
+    import concurrent.futures
+    import multiprocessing
+    ex = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return ex, ex.submit(_edge_chain_on_host, EDGE_ROUNDS, DEFAULT_GENESIS,
+                         DEFAULT_PERIOD)
+
+
+def edge_phases(ctx):
+    """The edge phases (module doc): edge_walk, edge_four_walks and
+    edge_forged, then /health and the relays.  Returns {"paths": {path:
+    (launches, shapes)}, "walls": {...}}; the paths' shapes join phase 4."""
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+    torch, K, B, schemes = ctx["torch"], ctx["K"], ctx["B"], ctx["schemes"]
+    name, smi_line = ctx["name"], ctx["smi_line"]
+    from drand_tpu_torch.beacon.clock import FakeClock
+    from drand_tpu_torch.chain import (Beacon, SqliteStore, genesis_beacon,
+                                       time_of_round)
+    from drand_tpu_torch.client import (From, HttpTransport, insecurely,
+                                        new_client, with_chain_hash,
+                                        with_full_chain_verification)
+    from drand_tpu_torch.crypto import verify_service as VS
+    from drand_tpu_torch.http_server import RestServer, _beacon_json
+    from drand_tpu_torch.net.admission import AdmissionController
+    from drand_tpu_torch.relay import (DirObjectStore, HttpRelay,
+                                       ObjectStoreRelay)
+    H = _beacon_harness()
+    sch = schemes.scheme_from_name(schemes.DEFAULT_SCHEME_ID)
+    n, r_bad = EDGE_ROUNDS, EDGE_FORGED
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_edge_")
+    paths, walls, out, bad = {}, {}, {}, []
+
+    class TimedHttp(HttpTransport):
+        """The HTTP transport with its gets' wall summed: the walk's fetch
+        part."""
+        fetch_s, gets = 0.0, 0
+
+        def get(self, round_=0):
+            t0 = time.perf_counter()
+            try:
+                return super().get(round_)
+            finally:
+                self.fetch_s += time.perf_counter() - t0
+                self.gets += 1
+
+    # -- the chain: signed one round a call (a chained round's message
+    # holds the previous signature), by the host or by a 1-lane sign_batch,
+    # whichever signed EDGE_SIGN_PROBE rounds faster; the host's signatures
+    # come from the process start_edge_chain began before the beacon phases
+    sk, _ = sch.keypair(seed=b"client-mock")   # MockChain's key
+    probe = [sch.digest_beacon(r, b"\x07" * 32) for r in
+             range(1, EDGE_SIGN_PROBE + 1)]
+    t0 = time.perf_counter()
+    host_sigs = [sch.sign(sk, m) for m in probe]
+    host_s = (time.perf_counter() - t0) / len(probe)
+    B.sign_batch(sch, sk, probe[:1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_sigs = [B.sign_batch(sch, sk, [m])[0] for m in probe]
+    torch.cuda.synchronize()
+    card_s = (time.perf_counter() - t0) / len(probe)
+    if card_sigs != host_sigs:
+        fail("edge: a 1-lane sign_batch disagrees with the host signer")
+    ex, signed = ctx["edge_chain"]
+    t0 = time.perf_counter()
+    if card_s < host_s:
+        signer, sign_s = "sign_batch, 1 lane", None
+        signed.cancel()
+        sign = lambda m: B.sign_batch(sch, sk, [m])[0]  # noqa: E731
+    else:
+        signer = "host Scheme.sign, in a process of its own"
+        host_chain, sign_s = signed.result(BEACON_WAIT_S)
+        sign = lambda m, it=iter(host_chain): next(it)  # noqa: E731
+    ex.shutdown(wait=True)
+    chain = H.MockChain(n=n, genesis=DEFAULT_GENESIS, period=DEFAULT_PERIOD,
+                        sign=sign)
+    torch.cuda.synchronize()
+    chain_wait_s = time.perf_counter() - t0
+    if sign_s is None:
+        sign_s = chain_wait_s
+    info, h = chain.info, chain.info.hash_string()
+
+    def serve(beacons, db):
+        """A sqlite store (trimmed rows: a round's previous signature is
+        read from the row before) behind the port's RestServer, with an
+        admission controller, on a clock at the head round's time."""
+        store = SqliteStore(os.path.join(tmp, db), require_previous=True)
+        store.put(genesis_beacon(info.genesis_seed))
+        store.put_many(beacons[r] for r in sorted(beacons))
+        bp = H.ShimProcess.of_store(info, store)
+        server = RestServer(
+            H.ShimDaemon(bp), "127.0.0.1:0",
+            clock=FakeClock(time_of_round(info.period, info.genesis_time,
+                                          n)),
+            admission=AdmissionController())
+        server.start()
+        return server, bp, store, f"http://127.0.0.1:{server.port}"
+
+    def strict_client(url):
+        tr = TimedHttp(url)
+        return tr, new_client(From(tr), with_chain_hash(h),
+                              with_full_chain_verification())
+
+    def fetch(url, path):
+        try:
+            with urllib.request.urlopen(url + path, timeout=60) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def begin():
+        torch.cuda.synchronize()
+        K.reset_launches()
+        return B.pass_counts(), svc.stats()
+
+    def end(path, before):
+        torch.cuda.synchronize()
+        passes0, st0 = before
+        paths[path] = (dict(K.LAUNCHES), dict(K.SHAPES))
+        after, st = B.pass_counts(), svc.stats()
+        delta = {k: st[k] - st0[k] for k in ("submitted", "dispatches",
+                                              "dispatch_lanes",
+                                              "host_served", "preemptions",
+                                              "failovers", "watchdog_trips")}
+        delta["device_time_s"] = st["device_time_s"] - st0["device_time_s"]
+        missing = [k for k in G2_RLC_KERNELS if paths[path][0][k] == 0]
+        if missing:
+            bad.append(f"{path}: kernels of the path not launched: "
+                       f"{missing}")
+        if delta["host_served"] or delta["failovers"] \
+                or delta["watchdog_trips"]:
+            bad.append(f"{path}: served on the host or failed over: "
+                       f"{delta}")
+        if delta["dispatches"] < 1:
+            bad.append(f"{path}: no device dispatch: {delta}")
+        return {k: after[k] - passes0[k] for k in after}, delta
+
+    # the process-default verify service on the card, as a client makes it
+    old_svc = VS.set_service(None)
+    svc = VS.get_service()
+    server, bp, store, url = serve(chain.beacons, "edge.db")
+    fserver = fbp = None
+    try:
+        # -- edge_walk: one strict client, get(n) from no trust ------------
+        before = begin()
+        tr, client = strict_client(url)
+        t0 = time.perf_counter()
+        res = client.get(n)
+        wall = time.perf_counter() - t0
+        passes, st = end("edge_walk", before)
+        ok = res.round == n and res.randomness == \
+            chain.beacons[n].randomness()
+        out["edge_walk"] = {
+            "rounds": n, "all_valid": ok, "http_gets": tr.gets,
+            "fetch_s": tr.fetch_s, "sweep_s": wall - tr.fetch_s,
+            "wall_s": wall, "rounds_per_s": n / wall,
+            "sweep_rounds_per_s": n / (wall - tr.fetch_s),
+            "passes": passes, "service": st,
+            "service_summary": svc.summary()}
+        if not ok or passes != {"rlc": 1, "exact": 0} \
+                or tr.gets != n:
+            bad.append(f"edge_walk: result {res.round}, valid {ok}, "
+                       f"passes {passes}, http gets {tr.gets}")
+        walls["edge_walk"] = wall
+
+        # -- edge_four_walks: EDGE_CLIENTS strict clients at once ----------
+        before = begin()
+        results, errors = [None] * EDGE_CLIENTS, []
+
+        def walk(i):
+            try:
+                results[i] = strict_client(url)[1].get(n)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=walk, args=(i,))
+                   for i in range(EDGE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall4 = time.perf_counter() - t0
+        passes4, st4 = end("edge_four_walks", before)
+        ok4 = not errors and all(
+            r is not None and r.round == n and r.randomness ==
+            chain.beacons[n].randomness() for r in results)
+        out["edge_four_walks"] = {
+            "clients": EDGE_CLIENTS, "all_valid": ok4, "errors": errors,
+            "wall_s": wall4, "rounds_per_s": EDGE_CLIENTS * n / wall4,
+            "dispatches": st4["dispatches"], "passes": passes4,
+            "service": st4}
+        if not ok4:
+            bad.append(f"edge_four_walks: {errors or results}")
+        walls["edge_four_walks"] = wall4
+
+        # -- edge_forged: round r's signature and round r+1's previous
+        # signature (the row before it, in the trimmed store) the same
+        # forged bytes: linkage holds, the sweep must name the pair
+        forged = chain.forged_pair(r_bad)
+        fserver, fbp, fstore, furl = serve(forged, "forged.db")
+        linked = fstore.get(r_bad + 1).previous_sig == \
+            forged[r_bad].signature
+        before = begin()
+        ftr, fclient = strict_client(furl)
+        t0 = time.perf_counter()
+        try:
+            fclient.get(n)
+            named = None
+        except ValueError as e:
+            named = str(e)
+        fwall = time.perf_counter() - t0
+        fpasses, fst = end("edge_forged", before)
+        want = f"invalid signatures at rounds {[r_bad, r_bad + 1]}"
+        out["edge_forged"] = {
+            "forged_rounds": [r_bad, r_bad + 1], "linked": linked,
+            "error": named, "named_exactly": named == want,
+            "fetch_s": ftr.fetch_s, "sweep_s": fwall - ftr.fetch_s,
+            "wall_s": fwall, "passes": fpasses, "service": fst}
+        if named != want or not linked or fpasses["exact"] < 1:
+            bad.append(f"edge_forged: raised {named!r} (want {want!r}), "
+                       f"linked {linked}, passes {fpasses}")
+        walls["edge_forged"] = fwall
+
+        # -- /health: the service's summary, its dispatches included -------
+        code, body = fetch(url, "/health")
+        health = json.loads(body)
+        dispatches = svc.stats()["dispatches"]
+        out["health"] = {"status": code, "verify": health.get("verify"),
+                         "ready": health.get("ready")}
+        if code != 200 or not str(health.get("verify", "")).startswith(
+                f"dispatches={dispatches} "):
+            bad.append(f"/health: {code} {health}")
+
+        # -- the relays: an HttpRelay over a (verifying) client of the
+        # edge, and an ObjectStoreRelay uploading EDGE_RELAY_ROUNDS rounds
+        # (it verifies each round itself, so its client does not)
+        t0 = time.perf_counter()
+        relay = HttpRelay(new_client(From(HttpTransport(url)),
+                                     with_chain_hash(h)))
+        relay.start()
+        rurl = f"http://127.0.0.1:{relay.port}"
+        try:
+            mid = n // 2
+            relay_eq = {
+                p: fetch(rurl, p) == (200, _beacon_json(store.get(r)))
+                for p, r in ((f"/public/{mid}", mid),
+                             ("/public/latest", n),
+                             (f"/{h}/public/{r_bad}", r_bad))}
+        finally:
+            relay.stop()
+        http_relay_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        objects = DirObjectStore(os.path.join(tmp, "bucket"))
+        osr = ObjectStoreRelay(new_client(From(HttpTransport(url)),
+                                          with_chain_hash(h), insecurely()),
+                               objects)
+        lo = n - EDGE_RELAY_ROUNDS + 1
+        uploaded = osr.sync(lo, n)
+        read_back = all(objects.get(f"{info.hash().hex()}/public/{r}")
+                        == _beacon_json(store.get(r))
+                        for r in range(lo, n + 1))
+        object_relay_s = time.perf_counter() - t0
+        out["relays"] = {"http_relay_bytes_equal": relay_eq,
+                         "http_relay_s": http_relay_s,
+                         "object_store_uploaded": uploaded,
+                         "object_store_read_back_equal": read_back,
+                         "object_store_s": object_relay_s}
+        if not all(relay_eq.values()) or uploaded != EDGE_RELAY_ROUNDS \
+                or not read_back:
+            bad.append(f"relays: {out['relays']}")
+    finally:
+        server.stop()
+        bp.handler.chain.stop()
+        if fserver is not None:
+            fserver.stop()
+            fbp.handler.chain.stop()
+        svc.stop()
+        VS.set_service(old_svc)
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "edge", "scheme": sch.id, "chain_rounds": n,
+          "period_s": DEFAULT_PERIOD, "store": "sqlite",
+          "signer": signer, "sign_host_s_per_round": host_s,
+          "sign_batch_1_lane_s_per_round": card_s, "chain_sign_s": sign_s,
+          "chain_wait_s": chain_wait_s,
+          **out, "launches": {p: v[0] for p, v in paths.items()},
+          "device": name, "nvidia_smi": smi_line})
+    if bad:
+        fail(f"edge: {bad}")
     return {"paths": paths, "walls": walls}
 
 
@@ -2560,8 +2914,8 @@ def main():
     # pool-wide placement) serves the rounds signed above through its
     # entry points: handles, submit from many caller threads, the lanes,
     # chunking, and its failure domain.
-    # Its depth is half the batch (SERVICE_SHARE) since the beacon phases
-    # came: the same code paths, and time for them in the script's limit.
+    # Its depth is a quarter of the batch (SERVICE_SHARE): the same code
+    # paths, and time for them in the script's limit.
     ns = n // SERVICE_SHARE
     service_phases(
         dict(torch=torch, K=K, B=B, schemes=schemes, HS=HS, pk=pk, pk2=pk2,
@@ -2577,10 +2931,19 @@ def main():
     dkg_keys = {sh for _, shapes in dkg["paths"].values() for sh in shapes}
     assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
 
+    # the edge phase's chain, signed on the host meanwhile
+    edge_chain = start_edge_chain()
+
     # -- phase beacon: the beacon layer as a network of 13 daemons ----------
     beacon = beacon_phases(dict(torch=torch, K=K, B=B, schemes=schemes,
                                 HT=HT, R=R, rng=rng, name=name,
                                 smi_line=smi_line))
+    assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
+
+    # -- phase edge: the public edge and strict clients' catch-up ----------
+    edge_run = edge_phases(dict(torch=torch, K=K, B=B, schemes=schemes,
+                                name=name, smi_line=smi_line,
+                                edge_chain=edge_chain))
     assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
 
     # -- phase 4: each kernel against its plain version at the path's shapes
@@ -2941,7 +3304,9 @@ def main():
         ran.update(thr[tag]["paths"])
     ran.update(dkg["paths"])
     ran.update(beacon["paths"])
-    groups = {"dkg": set(dkg["paths"]), "beacon": set(beacon["paths"])}
+    ran.update(edge_run["paths"])
+    groups = {"dkg": set(dkg["paths"]), "beacon": set(beacon["paths"]),
+              "edge": set(edge_run["paths"])}
 
     # Every other shape a path launched (the threshold paths' widths, and
     # all of K6) gets inputs made here: random field elements, the points
@@ -3127,11 +3492,18 @@ def main():
                  code_group(counts)), (12 if g2 else 6) + nbits / 12,
                 chain(kind, counts))
 
-    # K6's tail check: 16 bits over 5 lanes, no multiple of a block's lanes
+    # K6's tail check: 16 bits over 5 lanes, no multiple of a block's lanes;
+    # H1's DIGEST front of a chained chunk whose first previous signature is
+    # a 32-byte genesis seed, at N: the edge phase's strict walks launch
+    # it (a shape is held once, so it goes in before the recorded ones)
     for sp in specs:
         if sp[0].startswith("scalar_mul_bits"):
             sp[5].append(k6_shape(sp[0].endswith("_g2"), 16, 5,
                                   "16 bits at 5 lanes (check)"))
+        if sp[0] == "hash_to_field_fp2":
+            sp[5].append(h1_shape("hash_to_field_fp2", "msg", pad,
+                                  "digest at N, genesis-seed chunk",
+                                  genesis_seed=True))
     timed_shapes = {(kname, key, lanes) for kname, *_, shapes in specs
                     for _, key, lanes, *_ in shapes}
     recorded = sorted({sh for _, shapes in ran.values() for sh in shapes},
@@ -3142,11 +3514,6 @@ def main():
             if kname not in by_name:
                 fail(f"a launch of {kname}, a kernel the table does not hold")
             by_name[kname].append(generic_shape(kname, key, lanes))
-    # the DIGEST front of a chained chunk whose first previous signature is
-    # a 32-byte genesis seed, at N (a check: the paths take the raw front)
-    by_name["hash_to_field_fp2"].append(h1_shape(
-        "hash_to_field_fp2", "msg", pad,
-        "digest at N, genesis-seed chunk (check)", genesis_seed=True))
 
     # -- phase h2f_front: H1 at every shape the paths launched, against its
     # plain version (limbs) and the host oracle (hashlib + host
@@ -3209,6 +3576,9 @@ def main():
     # held it alone.
     jobs = [(kname, i) for kname, *_, shapes in specs
             for i in range(len(shapes))]
+    # the twins are launch-bound Python: a thread the earlier phases left
+    # running would take the interpreter from them
+    threads_alive = sorted(th.name for th in threading.enumerate())
     t0 = time.perf_counter()
     plain_out, walls = run_plain(
         [by_name[kname][i][4] for kname, i in jobs], torch.cuda.synchronize,
@@ -3313,7 +3683,11 @@ def main():
                          f"groups, the {CEREMONY_N}-node ceremony), the "
                          f"beacon phases' networks ({N_NODES} nodes, t = "
                          f"{THRESHOLD}: (1, {N_NODES}) partials checks, "
-                         f"{BEACON_CHUNK}-round sync and scan chunks)",
+                         f"{BEACON_CHUNK}-round sync and scan chunks), the "
+                         f"edge phase's strict walks ({EDGE_ROUNDS} chained "
+                         f"rounds through the process-default service: "
+                         f"one client, {EDGE_CLIENTS} at once, a forged "
+                         f"pair)",
             "per_shape": detail,
             "ptxas": entry_stats(regs, src, *needles),
             "group": group_layout.get(kname),
@@ -3321,6 +3695,7 @@ def main():
     emit({"phase": "kernels_vs_plain", "tolerance": "exact (integer "
           "arithmetic): max |kernel - plain| over 16-bit limbs",
           "plain_twins_wall_s": plain_wall_s, "plain_calls": plain_calls,
+          "threads_alive": threads_alive,
           "shapes": len(jobs),
           "max_abs_err": checks})
     if any(v != 0 for v in checks.values()):

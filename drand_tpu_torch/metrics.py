@@ -2,9 +2,13 @@
 
 The port's counterpart of the series of drand_tpu/metrics.py that its
 modules touch: the ``verify_*`` series (the resident verify service, its
-failure domain and the device pool) in the "private" registry, and the
+failure domain and the device pool), the serving plane's ``admission_*``
+series and ``identity_rejections_total`` in the "private" registry, the
 resilience (``resilience_*``) and chain-integrity (``chain_integrity_*``)
-series in the "group" registry, as the reference splits them.  The same
+series in the "group" registry, the REST edge's ``api_call_counter`` and
+``http_response_latency_seconds`` in the "http" registry and the HTTP
+client's ``client_http_heartbeat`` in the "client" registry, as the
+reference splits them.  The same
 series names, label names and help text, so a dashboard built on the JAX
 daemon reads the port's scrape unchanged.  The machines the port runs on
 need not have ``prometheus_client``, so the counters, gauges and histograms
@@ -49,8 +53,11 @@ class Registry:
 
 
 PRIVATE = Registry()
+HTTP = Registry()
 GROUP = Registry()
-_REGISTRIES = {"private": PRIVATE, "group": GROUP}
+CLIENT = Registry()
+_REGISTRIES = {"private": PRIVATE, "http": HTTP, "group": GROUP,
+               "client": CLIENT}
 
 
 def _fmt(v) -> str:
@@ -192,8 +199,8 @@ class Histogram(_Metric):
 
 
 def scrape(which: str = "private") -> bytes:
-    """The Prometheus text of a registry ("private" or "group", where
-    drand_tpu/metrics.py puts these series)."""
+    """The Prometheus text of a registry ("private", "http", "group" or
+    "client", where drand_tpu/metrics.py puts these series)."""
     try:
         return _REGISTRIES[which].scrape()
     except KeyError:
@@ -340,3 +347,43 @@ partial_check_errors = Counter(
     "beacon_partial_check_errors_total",
     "Aggregation-time partial checks that raised (the round waits for its "
     "next partial)", ["beacon_id"], registry=GROUP)
+
+# The REST edge (http_server.py) and the HTTP client transport
+# (client/transports.py).
+api_call_counter = Counter(
+    "api_call_counter", "Public API calls", ["api_method"], registry=HTTP)
+http_latency = Histogram(
+    "http_response_latency_seconds", "REST edge latency", ["route"],
+    registry=HTTP)
+client_http_heartbeat = Counter(
+    "client_http_heartbeat", "HTTP client watch liveness", ["url"],
+    registry=CLIENT)
+# Serving-plane admission control (net/admission.py): `cls` is
+# critical|normal|sheddable, `decision` admitted|shed; `admission_level` is
+# the degradation-ladder rung (0 nominal, 1 shed-public, 2
+# pause-background, 3 shed-normal).
+admission_requests = Counter(
+    "admission_requests_total",
+    "Serving-plane admission decisions",
+    ["cls", "decision"])
+admission_wait_seconds = Histogram(
+    "admission_wait_seconds",
+    "Admission queue wait per admitted request (the ladder's p99 signal)",
+    ["cls"],
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 5.0))
+admission_level = Gauge(
+    "admission_level",
+    "Degradation-ladder level (0 nominal .. 3 shed-normal)")
+admission_inflight = Gauge(
+    "admission_inflight",
+    "Requests currently holding an admission token", ["cls"])
+admission_background_paused = Gauge(
+    "admission_background_paused",
+    "1 while the ladder has paused the verify service's background lane")
+# The identity plane (core/authz.py): tenant-token verdicts on the REST
+# edge, a bounded reason label.
+identity_rejections = Counter(
+    "identity_rejections_total",
+    "Authentication rejections by surface (grpc | rest | handel) and "
+    "reason (token REASON_* values, or impersonation)",
+    ["surface", "reason"])

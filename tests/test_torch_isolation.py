@@ -5,6 +5,11 @@ afterwards neither ``jax`` nor any ``drand_tpu`` module may be in
 ``sys.modules``.  Every source file of the package is also read for import
 statements that name either.  And the entry point runs on CUDA unless the
 caller asks for the CPU: without a GPU it raises instead of carrying on.
+
+The public edge (the REST server, the client, the relays, admission
+control) runs where grpc is absent: no edge module imports grpc or
+google.protobuf at module import, and a fresh interpreter in which both
+are unimportable serves one REST get and one verified client get.
 """
 
 import ast
@@ -80,3 +85,84 @@ def test_entry_point_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError):
         B.BatchBeaconVerifier(sch, pk, device="cuda")
     assert B.BatchBeaconVerifier(sch, pk, device="cpu").device.type == "cpu"
+
+
+EDGE = ["http_server.py", "relay.py", "s3.py", "log.py", "fs.py",
+        "client", "net", "core"]
+
+
+def _edge_files():
+    for name in EDGE:
+        p = PKG / name
+        yield from (sorted(p.rglob("*.py")) if p.is_dir() else [p])
+
+
+def _module_level_imports(path):
+    """Imports that run when the module is imported: the module body's,
+    not those inside a function."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try, ast.With, ast.ClassDef)):
+            stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", list(_edge_files()),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_edge_module_imports_no_grpc(path):
+    for mod in _module_level_imports(path):
+        assert mod.split(".")[0] != "grpc" \
+            and not mod.startswith("google.protobuf"), (path, mod)
+
+
+_NO_GRPC_CHILD = r"""
+import json, sys, urllib.request
+sys.modules["grpc"] = None
+sys.modules["google.protobuf"] = None
+sys.path.insert(0, "tests")
+import drand_tpu_torch.http_server, drand_tpu_torch.client
+import drand_tpu_torch.relay, drand_tpu_torch.net.admission
+from drand_tpu_torch.chain import MemDBStore, genesis_beacon
+from drand_tpu_torch.client import From, HttpTransport, new_client
+from drand_tpu_torch.client import with_chain_hash
+from drand_tpu_torch.http_server import RestServer
+from drand_tpu_torch.net.admission import AdmissionController
+from torch_beacon_harness import MockChain, ShimDaemon, ShimProcess
+chain = MockChain(n=2)
+store = MemDBStore(buffer_size=16)
+store.put(genesis_beacon(chain.info.genesis_seed))
+store.put_many(chain.beacons[r] for r in (1, 2))
+server = RestServer(ShimDaemon(ShimProcess.of_store(chain.info, store)),
+                    "127.0.0.1:0", admission=AdmissionController())
+server.start()
+try:
+    url = f"http://127.0.0.1:{server.port}"
+    rest = json.loads(urllib.request.urlopen(url + "/public/2").read())
+    got = new_client(From(HttpTransport(url)),
+                     with_chain_hash(chain.info.hash_string())).get(1)
+finally:
+    server.stop()
+bad = sorted(m for m in sys.modules
+             if sys.modules[m] is not None and (
+                 m.split(".")[0] in ("grpc", "jax", "drand_tpu")
+                 or m.startswith("google.protobuf")))
+print(json.dumps({"rest": rest["signature"] ==
+                  chain.beacons[2].signature.hex(),
+                  "client": got.randomness ==
+                  chain.beacons[1].randomness(), "bad": bad}))
+"""
+
+
+def test_edge_serves_and_verifies_without_grpc():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _NO_GRPC_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"rest": True, "client": True, "bad": []}

@@ -4,12 +4,18 @@ The port's counterpart of tests/harness.py's `LocalNetwork` and
 `BeaconScenario` (the core/util_test.go:43-78 pattern: n handlers share one
 FakeClock and exchange partials through a LocalNetwork that can drop
 nodes), of core/follow.py's `FollowFacade` and of tests/chaos.py's storage
-faults, over drand_tpu_torch only.  The port's `HandlerConfig` checks
+faults, over drand_tpu_torch only.  The public edge's fixtures: a real-crypto
+1-of-1 `MockChain` and its in-memory `MockSource` transport
+(tests/test_client.py's), and the slice of a daemon and its beacon process
+that the REST edge reads (`ShimDaemon`, `ShimProcess`;
+tests/test_http_server.py's shims).  The port's `HandlerConfig` checks
 partials on the card by default, so the scenario passes the verifier
 factory explicitly: the host one unless a test asks for another.
 """
 
 import threading
+import time
+from types import SimpleNamespace
 from typing import Dict
 
 from drand_tpu_torch.beacon import FakeClock, Handler, HandlerConfig
@@ -18,9 +24,11 @@ from drand_tpu_torch.beacon.stores import (AppendStore, CallbackStore,
                                            SchemeStore)
 from drand_tpu_torch.chain import Beacon, Info, MemDBStore, genesis_beacon
 from drand_tpu_torch.chain.errors import ErrNoBeaconStored
+from drand_tpu_torch.client.interface import Client, Result
 from drand_tpu_torch.crypto.host import tbls
 from drand_tpu_torch.crypto.schemes import scheme_from_name
 from drand_tpu_torch.key import DistPublic, Share, new_group, new_keypair
+from drand_tpu_torch.log import Logger
 
 
 class LocalNetwork:
@@ -267,3 +275,125 @@ class CachedVerifier:
             self._memo.update(zip(todo, (bool(g) for g in got)))
         return np.array([self._memo[k] for k in keys], dtype=bool)
 
+
+
+class MockChain:
+    """A real-crypto 1-of-1 chain (mock/grpcserver.go generateMockData;
+    tests/test_client.py's MockChain in the port's types: the same key,
+    seed and signature bytes).  `sign(msg) -> signature` replaces the host
+    signer (a chained round's message needs the previous signature, so the
+    rounds are signed one at a time)."""
+
+    def __init__(self, scheme_id="pedersen-bls-chained", n=6,
+                 genesis=1_700_000_000, period=30, sign=None):
+        self.scheme = scheme_from_name(scheme_id)
+        self.secret, pub = self.scheme.keypair(seed=b"client-mock")
+        self.public = self.scheme.public_bytes(pub)
+        self.info = Info(public_key=self.public, period=period,
+                         genesis_time=genesis, genesis_seed=b"\x07" * 32,
+                         scheme=scheme_id)
+        sign = sign or (lambda m: self.scheme.sign(self.secret, m))
+        self.beacons: Dict[int, Beacon] = {}
+        # chained chains anchor round 1 on the genesis seed (store.go:95-101)
+        prev = self.info.genesis_seed if self.scheme.chained else None
+        for r in range(1, n + 1):
+            sig = sign(self.scheme.digest_beacon(r, prev))
+            self.beacons[r] = Beacon(round=r, signature=sig,
+                                     previous_sig=prev)
+            if self.scheme.chained:
+                prev = sig
+
+    def forged_pair(self, r):
+        """A copy of the beacons with round r's signature and round r+1's
+        previous signature replaced by the same forged bytes (a valid
+        point: another message's signature under the chain's key), so the
+        linkage holds and only the signatures fail, at r and r + 1."""
+        forged = self.scheme.sign(self.secret,
+                                  self.scheme.digest_beacon(r + 10 ** 9))
+        out = dict(self.beacons)
+        out[r] = Beacon(round=r, signature=forged,
+                        previous_sig=out[r].previous_sig)
+        out[r + 1] = Beacon(round=r + 1, signature=out[r + 1].signature,
+                            previous_sig=forged)
+        return out
+
+
+class MockSource(Client):
+    """In-memory transport over a MockChain's beacons (or `beacons`, a
+    tampered copy); counts fetches."""
+
+    def __init__(self, chain: MockChain, latency: float = 0.0,
+                 fail: bool = False, beacons=None):
+        self.chain = chain
+        self.beacons = beacons if beacons is not None else chain.beacons
+        self.latency = latency
+        self.fail = fail
+        self.gets = 0
+
+    def get(self, round_: int = 0) -> Result:
+        self.gets += 1
+        if self.fail:
+            raise ConnectionError("source down")
+        if self.latency:
+            time.sleep(self.latency)
+        r = round_ or max(self.beacons)
+        if r not in self.beacons:
+            raise KeyError(r)
+        return Result.from_beacon(self.beacons[r])
+
+    def watch(self, stop=None):
+        for r in sorted(self.beacons):
+            if stop is not None and stop.is_set():
+                return
+            if self.fail:
+                raise ConnectionError("source down")
+            yield Result.from_beacon(self.beacons[r])
+
+    def info(self) -> Info:
+        if self.fail:
+            raise ConnectionError("source down")
+        return self.chain.info
+
+
+class ShimProcess:
+    """The slice of core/beacon_process.py's BeaconProcess that the REST
+    edge consumes: `beacon_id`, `handler.chain` (its `cbstore` carries the
+    long-poll callback), `chain_info()` and `get_beacon()`."""
+
+    def __init__(self, info: Info, chain, beacon_id="default"):
+        self.info = info
+        self.handler = SimpleNamespace(chain=chain)
+        self.beacon_id = beacon_id
+
+    @classmethod
+    def of_scenario(cls, scenario: BeaconScenario, index: int = 0):
+        g = scenario.group
+        info = Info(public_key=scenario.public_key, period=g.period,
+                    genesis_time=g.genesis_time,
+                    genesis_seed=g.get_genesis_seed(),
+                    scheme=scenario.scheme.id, beacon_id="default")
+        return cls(info, scenario.handlers[index].chain)
+
+    @classmethod
+    def of_store(cls, info: Info, backend):
+        """Over a filled store: a ChainFacade (the genesis row is put if
+        the store is empty)."""
+        chained = scheme_from_name(info.scheme).chained
+        return cls(info, ChainFacade(backend, chained, info.genesis_seed))
+
+    def chain_info(self) -> Info:
+        return self.info
+
+    def get_beacon(self, round_):
+        if round_ == 0:
+            return self.handler.chain.last()
+        return self.handler.chain.store.get(round_)
+
+
+class ShimDaemon:
+    """The slice of DrandDaemon that RestServer consumes."""
+
+    def __init__(self, bp: ShimProcess):
+        self.processes = {"default": bp}
+        self.chain_hashes = {bp.chain_info().hash_string(): "default"}
+        self.log = Logger("test")
