@@ -104,11 +104,11 @@ checked through ``partials_factory(device_verifier_factory)`` with no host
 fallback, a SyncChainServer, a SyncManager over the service's handle
 streaming from a peer's server, a FakeClock):
 
-  beacon_quicknet      ``bls-unchained-on-g1``: 12 nodes hold a 1024-round
+  beacon_quicknet      ``bls-unchained-on-g1``: 12 nodes hold a 512-round
                        chain signed by one ``sign_batch``; node 13 catches
-                       up from genesis into sqlite (2 chunks of 512 on its
+                       up from genesis into sqlite (a chunk of 512 on its
                        service's BACKGROUND lane) while the network makes
-                       3 live rounds, the last with a forged partial that
+                       2 live rounds, the last with a forged partial that
                        every node's exact pass drops;
   beacon_default       ``pedersen-bls-chained``: 3 rounds from genesis, the
                        sqlite node down for round 2 and caught up through
@@ -145,7 +145,43 @@ submission to the process-default ``VerifyService`` on the card:
 then ``/health`` carries the service's summary, an ``HttpRelay`` over a
 client of the edge serves ``/public/{r}`` and ``/public/latest`` with the
 store's bytes, and an ``ObjectStoreRelay`` over a ``DirObjectStore``
-uploads 64 rounds that read back equal.
+uploads 16 rounds that read back equal.
+
+The gRPC daemon (``drand_tpu_torch/core/``, ``net/``, ``cli.py``): four
+daemons, each a process of its own started by ``python -m
+drand_tpu_torch.cli start`` (its folder, the default sqlite store, its
+ports reported through ``--ready-file``, its own VerifyService on the
+card, the kernels loaded from the build above), keys made by ``cli
+generate-keypair``:
+
+  daemon_quicknet      ``bls-unchained-on-g1`` (the League of Entropy
+                       quicknet, 3 s, t = 3 of n = 4): the DKG over the
+                       Control plane (a leader, three joiners; one group
+                       hash and one collective key on all four); 5 live
+                       rounds, each read over gRPC ``PublicRand`` from
+                       every daemon, byte-equal, and verified here on the
+                       card against the collective key; one daemon shut
+                       down over Control for 2 rounds, restarted from its
+                       folder by the same CLI, caught up over
+                       ``SyncChain`` (BACKGROUND-lane dispatches in its
+                       metrics) until it stores a round by its own
+                       partials check; a strict client
+                       (``VerifyingClient`` over ``GrpcTransport``)
+                       getting every round from 1, and its ``watch()``
+                       yielding the next round: on this unchained chain
+                       the strict client has no linkage to walk and no
+                       card sweep, so it checks each get on the host, as
+                       client/verify.py routes it; every daemon's metrics,
+                       the group registry over ``ProtocolClient.metrics``
+                       and the verify service's series from its own
+                       ``MetricsServer`` (partial checks on the device,
+                       none on the host, no check error, failover,
+                       watchdog trip or host-served work); and the
+                       daemons' ``(1, 4)`` partials check of
+                       a stored round redone here from the shares in their
+                       key folders, its recovered signature equal to the
+                       stored one.  Every daemon exits 0 after its
+                       shutdown over Control.
 
 Then each kernel is held against its plain PyTorch version on the card at
 every shape the main paths gave it (exact: integer arithmetic) and
@@ -1394,12 +1430,16 @@ def _join(parts, ax):
 # The beacon phases' depth is cut to keep the script well inside its time
 # limit, every check kept: a live round of 13 nodes taking turns on the card
 # costs some 12 s (quicknet) or 27 s (default) on the H100, and the catch-up
-# shares the card with the live rounds.
-BEACON_CHAIN = 1024          # quicknet rounds the 12 running nodes hold
-BEACON_LIVE = 3              # live rounds each phase produces
+# shares the card with the live rounds (1024 rounds before the daemon phase
+# came, 512 since).
+BEACON_CHAIN = 512           # quicknet rounds the 12 running nodes hold
+BEACON_LIVE = 3              # live rounds beacon_default produces
+QUICKNET_LIVE = 2            # live rounds beacon_quicknet produces, the last
+                             # with a forged partial (3 before the daemon
+                             # phase came)
 BEACON_CHUNK = 512           # sync and scan chunk (beacon/sync.py's default)
 BEACON_DOWN = 1              # rounds a beacon_default node is down
-BEACON_FORGE_AT = 3          # the live round with a forged partial
+BEACON_FORGE_AT = 3          # beacon_default's round with a forged partial
 BEACON_FORGER = 4            # the signer index that forges it
 BEACON_WAIT_S = 600          # real seconds a node may take to store a round
 # 13 daemons share one interpreter and one card here.  A (1, 13) partials
@@ -1724,6 +1764,7 @@ def beacon_phases(ctx):
         return out, bad
 
     def quicknet():
+        live = QUICKNET_LIVE
         sch = schemes.scheme_from_name(schemes.SHORT_SIG_SCHEME_ID)
         poly = HT.PriPoly([rnd() for _ in range(t)])
         clock = FakeClock(time_of_round(QUICKNET_PERIOD, QUICKNET_GENESIS,
@@ -1771,7 +1812,7 @@ def beacon_phases(ctx):
             r = head + k
             t_tick = t_start
             if k > 1:
-                if k == BEACON_FORGE_AT:
+                if k == live:
                     forged = net.forge(r, None)
                 t_tick = time.perf_counter()
                 clock.advance(QUICKNET_PERIOD)
@@ -1815,7 +1856,7 @@ def beacon_phases(ctx):
               "threshold": t, "chain_rounds": head, "live_rounds": live,
               "sync_chunk": chunk, "late_node_store": "sqlite",
               "switch_interval_s": sys.getswitchinterval(),
-              "forged_at_round": head + BEACON_FORGE_AT,
+              "forged_at_round": head + live,
               "sign_batch_s": sign_s, "nodes_build_s": build_s,
               "catch_up_s": catchup_s,
               "catch_up_rounds_per_s": head / catchup_s,
@@ -1968,7 +2009,8 @@ def beacon_phases(ctx):
 EDGE_ROUNDS = 1024           # 8.5 h of the League of Entropy default chain
 EDGE_CLIENTS = 4             # strict clients walking the span at once
 EDGE_FORGED = 700            # the forged pair: rounds 700 and 701
-EDGE_RELAY_ROUNDS = 64       # rounds the object-store relay uploads
+EDGE_RELAY_ROUNDS = 16       # rounds the object-store relay uploads (64
+                             # before the daemon phase came)
 EDGE_SIGN_PROBE = 4          # rounds signed both ways to pick the signer
 
 
@@ -2277,6 +2319,530 @@ def edge_phases(ctx):
           "device": name, "nvidia_smi": smi_line})
     if bad:
         fail(f"edge: {bad}")
+    return {"paths": paths, "walls": walls}
+
+
+# ---------------------------------------------------------------------------
+# The daemon phase: four port daemons, each a process of its own started by
+# the port's CLI, over real gRPC on localhost
+# ---------------------------------------------------------------------------
+
+DAEMON_N, DAEMON_T = 4, 3    # t = 3 of n = 4
+DAEMON_PERIOD = 3            # the League of Entropy quicknet's period (s)
+DAEMON_LIVE = 5              # live rounds every daemon stores from genesis
+DAEMON_DOWN = 2              # rounds the network makes while one is down
+DAEMON_AFTER = 2             # live rounds the restarted daemon stores
+DAEMON_DKG_TIMEOUT = 5       # a DKG phase's timeout in seconds: the genesis
+                             # is 3 of them and a second after the group, past
+                             # the DKG's end (some 15 s of host crypto), so
+                             # round 1 is on time
+DAEMON_WAIT_S = 120          # real seconds any one wait of the phase may take
+DAEMON_SECRET = b"chip-smoke-daemon-quicknet"
+DAEMON_CHECK_ROUND = 2       # the stored round the in-process check redoes
+# the kernels each in-process path of the phase must launch: a verify pass
+# under 64 rounds hashes on the host (no H1)
+_G1_PASS = tuple(k for k in G1_RLC_KERNELS if k != "hash_to_field")
+DAEMON_KERNELS = {"daemon_rounds": _G1_PASS, "daemon_check": _G1_PASS}
+
+
+def _prom(text):
+    """{(name, ((label, value), ...)): value} of a Prometheus text scrape."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, val = line.rpartition(" ")
+        name, _, rest = head.partition("{")
+        labels = tuple(sorted(
+            tuple(kv.split("=", 1)) for kv in
+            re.findall(r'[a-zA-Z_]+="[^"]*"', rest)))
+        labels = tuple((k, v.strip('"')) for k, v in labels)
+        out[(name, labels)] = float(val)
+    return out
+
+
+def _series(scrape, name, **want):
+    """The samples of `name` whose labels hold `want`."""
+    return [v for (n, labels), v in scrape.items() if n == name
+            and all((k, str(w)) in labels for k, w in want.items())]
+
+
+def _hist_quantile(scrape, name, q):
+    """The upper bound of the bucket holding quantile q of a histogram
+    summed over its label sets (None when it has no samples)."""
+    by_le = {}
+    for (n, labels), v in scrape.items():
+        if n == name + "_bucket":
+            le = float(dict(labels)["le"])
+            by_le[le] = by_le.get(le, 0.0) + v
+    total = max(by_le.values(), default=0.0)
+    if not total:
+        return None
+    for le in sorted(by_le):
+        if by_le[le] >= q * total:
+            return le
+    return None
+
+
+def daemon_phases(ctx):
+    """The daemon_quicknet phase (module doc).  Returns {"paths": {path:
+    (launches, shapes)}, "walls": {...}}; the in-process paths' shapes join
+    phase 4.  Any failed check, or a daemon that exits non-zero, prints
+    that daemon's log tail and fails the script."""
+    import shutil
+    import socket
+    import tempfile
+    import urllib.request
+    torch, K, B, schemes, HT = (ctx["torch"], ctx["K"], ctx["B"],
+                                ctx["schemes"], ctx["HT"])
+    name, smi_line = ctx["name"], ctx["smi_line"]
+    from drand_tpu_torch.beacon.chainstore import DevicePartialVerifier
+    from drand_tpu_torch.client import GrpcTransport, VerifyingClient
+    from drand_tpu_torch.crypto import verify_service as VS
+    from drand_tpu_torch.key.store import FileStore
+    from drand_tpu_torch.net import ControlClient, Peer, ProtocolClient
+    from drand_tpu_torch.net import convert
+    from drand_tpu_torch.protos import drand_pb2 as pb
+    sch = schemes.scheme_from_name(schemes.SHORT_SIG_SCHEME_ID)
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daemons_")
+    # a peer's breaker on the stopped daemon probes it again after one
+    # period (net/resilience.py's default cooldown is 30 s), so the
+    # restarted daemon gets partials again within a round or two
+    env = dict(os.environ, DRAND_BREAKER_COOLDOWN=str(DAEMON_PERIOD),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    cli = [sys.executable, "-m", "drand_tpu_torch.cli"]
+    folders = [os.path.join(tmp, f"d{i}") for i in range(DAEMON_N)]
+    ports = []
+    for _ in range(DAEMON_N):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    procs, ready, walls, out, paths = {}, {}, {}, {}, {}
+    pc = ProtocolClient()
+    t_phase = time.perf_counter()
+
+    def log_tail(i, nbytes=6000):
+        try:
+            with open(os.path.join(tmp, f"d{i}.log"), "rb") as f:
+                f.seek(0, os.SEEK_END)
+                f.seek(max(0, f.tell() - nbytes))
+                return f.read().decode(errors="replace")
+        except OSError:
+            return ""
+
+    def stop_all():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+    def die(msg, i=None):
+        """Fail the script: the daemon's log tail first (or every
+        daemon's), then every process stopped."""
+        for j in ([i] if i is not None else sorted(procs)):
+            sys.stderr.write(f"--- daemon {j} ({addrs[j]}) log tail ---\n"
+                             + log_tail(j) + "\n")
+        sys.stderr.flush()
+        stop_all()
+        pc.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        fail(f"daemon_quicknet: {msg}")
+
+    def alive():
+        for i, p in procs.items():
+            if p.poll() is not None and i not in down:
+                die(f"daemon {i} exited with {p.returncode}", i)
+
+    def spawn(i):
+        path = os.path.join(tmp, f"d{i}.ready.json")
+        if os.path.exists(path):
+            os.unlink(path)
+        with open(os.path.join(tmp, f"d{i}.log"), "ab") as log:
+            procs[i] = subprocess.Popen(
+                cli + ["start", "--folder", folders[i], "--private-listen",
+                       addrs[i], "--control", "0", "--metrics", "0",
+                       "--dkg-timeout",
+                       str(DAEMON_DKG_TIMEOUT), "--ready-file", path],
+                cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def wait_ready(i):
+        path = os.path.join(tmp, f"d{i}.ready.json")
+        deadline = time.monotonic() + DAEMON_WAIT_S
+        while not os.path.exists(path):
+            if procs[i].poll() is not None:
+                die(f"daemon {i} exited with {procs[i].returncode} before "
+                    "it was ready", i)
+            if time.monotonic() > deadline:
+                die(f"daemon {i} not ready in {DAEMON_WAIT_S} s", i)
+            time.sleep(0.05)
+        with open(path) as f:
+            ready[i] = json.load(f)
+
+    def latest(i):
+        try:
+            return pc.public_rand(Peer(addrs[i]), 0, "default").round
+        except Exception:       # noqa: BLE001 — not serving yet
+            return 0
+
+    def wait_rounds(target, who):
+        """Wait until every daemon in `who` serves round `target`;
+        {daemon: time.time() it was first seen serving it}."""
+        seen = {}
+        deadline = time.monotonic() + DAEMON_WAIT_S
+        while len(seen) < len(who):
+            alive()
+            for i in who:
+                if i not in seen and latest(i) >= target:
+                    seen[i] = time.time()
+            if time.monotonic() > deadline:
+                die(f"round {target} not served by "
+                    f"{sorted(set(who) - set(seen))} in {DAEMON_WAIT_S} s")
+            time.sleep(0.05)
+        return seen
+
+    def read_round(r, who):
+        got = {i: pc.public_rand(Peer(addrs[i]), r, "default")
+               for i in who}
+        sigs = {g.signature for g in got.values()}
+        if len(sigs) != 1 or any(g.round != r for g in got.values()):
+            die(f"round {r} differs between daemons: "
+                f"{ {i: g.signature.hex()[:16] for i, g in got.items()} }")
+        return got[who[0]].signature
+
+    def scrape(i, private=False, want=()):
+        """Daemon i's group registry over the Protocol plane, or with
+        `private` the verify service's registry from its own
+        MetricsServer; each name in `want` must be registered there."""
+        if private:
+            url = f"http://127.0.0.1:{ready[i]['metrics']}/metrics/private"
+            with urllib.request.urlopen(url, timeout=30) as r:
+                text = r.read().decode()
+        else:
+            text = pc.metrics(Peer(addrs[i])).decode()
+        absent = [n for n in want if f"# TYPE {n} " not in text]
+        if absent:
+            die(f"daemon {i}'s scrape lacks {absent}", i)
+        return _prom(text)
+
+    def drive(path, fn):
+        """Run an in-process path with the launch counts set to 0 just
+        before it and read just after; each kernel of DAEMON_KERNELS[path]
+        must have launched."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        paths[path] = (dict(K.LAUNCHES), dict(K.SHAPES))
+        missing = [k for k in DAEMON_KERNELS[path] if not K.LAUNCHES[k]]
+        if missing:
+            die(f"{path}: kernels of the path not launched: {missing}")
+        return res
+
+    down = set()
+    try:
+        # -- four keypairs of the quicknet scheme, each daemon's address
+        t0 = time.perf_counter()
+        gens = [subprocess.Popen(
+            cli + ["generate-keypair", "--folder", folders[i], "--scheme",
+                   sch.id, addrs[i]], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i in range(DAEMON_N)]
+        for i, g in enumerate(gens):
+            text, _ = g.communicate(timeout=DAEMON_WAIT_S)
+            if g.returncode != 0:
+                sys.stderr.write(text[-4000:])
+                die(f"generate-keypair for daemon {i} exited with "
+                    f"{g.returncode}")
+        walls["keypairs_s"] = time.perf_counter() - t0
+        # -- four daemons, each `python -m drand_tpu_torch.cli start`
+        t0 = time.perf_counter()
+        for i in range(DAEMON_N):
+            spawn(i)
+        for i in range(DAEMON_N):
+            wait_ready(i)
+        walls["start_s"] = time.perf_counter() - t0
+
+        # -- the DKG over the Control plane: one leader, three joiners
+        results, errors = [None] * DAEMON_N, []
+
+        def init(i):
+            cc = ControlClient(ready[i]["control"])
+            info = pb.SetupInfo(leader=i == 0, nodes=DAEMON_N,
+                                threshold=DAEMON_T, timeout_seconds=30,
+                                secret=DAEMON_SECRET)
+            if i:
+                info.leader_address = addrs[0]
+            req = pb.InitDKGPacket(info=info,
+                                   beacon_period_seconds=DAEMON_PERIOD,
+                                   schemeID=sch.id,
+                                   metadata=convert.metadata("default"))
+            deadline = time.monotonic() + 30
+            try:
+                while True:
+                    try:
+                        results[i] = cc.stub.init_dkg(req, timeout=120)
+                        return
+                    except Exception as e:     # noqa: BLE001
+                        # a joiner retries until the leader's setup runs
+                        if i == 0 or time.monotonic() > deadline:
+                            errors.append((i, repr(e)))
+                            return
+                        time.sleep(0.2)
+            finally:
+                cc.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=init, args=(i,))
+                   for i in range(DAEMON_N)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=DAEMON_WAIT_S)
+        walls["dkg_s"] = time.perf_counter() - t0
+        if errors or any(r is None for r in results):
+            die(f"the DKG failed: {errors}")
+        groups = [convert.proto_to_group(r) for r in results]
+        group_hashes = {g.hash().hex() for g in groups}
+        keys = {g.public_key.key() for g in groups}
+        out["dkg"] = {"group_hashes": len(group_hashes),
+                      "collective_keys": len(keys),
+                      "threshold": groups[0].threshold,
+                      "nodes": len(groups[0]), "scheme": groups[0].scheme.id,
+                      "period_s": groups[0].period}
+        if len(group_hashes) != 1 or len(keys) != 1 \
+                or groups[0].threshold != DAEMON_T \
+                or len(groups[0]) != DAEMON_N \
+                or groups[0].scheme.id != sch.id:
+            die(f"the DKG did not agree: {out['dkg']}")
+        group = groups[0]
+        pk = group.public_key.key()
+        genesis = group.genesis_time
+        walls["genesis_wait_s"] = max(0.0, genesis - time.time())
+
+        def scheduled(r):
+            return genesis + (r - 1) * group.period
+
+        # -- live rounds from genesis on all four
+        everyone = list(range(DAEMON_N))
+        beacons, round_walls = {}, {}
+        for r in range(1, DAEMON_LIVE + 1):
+            seen = wait_rounds(r, everyone)
+            round_walls[r] = max(seen.values()) - scheduled(r)
+            beacons[r] = read_round(r, everyone)
+
+        # -- one daemon shut down over Control, then restarted by the CLI
+        victim = DAEMON_N - 1
+        others = [i for i in everyone if i != victim]
+        cc = ControlClient(ready[victim]["control"])
+        down.add(victim)
+        cc.stub.shutdown(pb.ShutdownRequest(metadata=convert.metadata()),
+                         timeout=30)
+        cc.close()
+        try:
+            rc = procs[victim].wait(timeout=DAEMON_WAIT_S)
+        except subprocess.TimeoutExpired:
+            die("the daemon shut down over Control did not exit", victim)
+        if rc != 0:
+            die(f"the daemon shut down over Control exited with {rc}",
+                victim)
+        head = DAEMON_LIVE + DAEMON_DOWN
+        for r in range(DAEMON_LIVE + 1, head + 1):
+            seen = wait_rounds(r, others)
+            round_walls[r] = max(seen.values()) - scheduled(r)
+            beacons[r] = read_round(r, others)
+        t0 = time.perf_counter()
+        spawn(victim)
+        wait_ready(victim)
+        down.discard(victim)
+        restart_ready_s = time.perf_counter() - t0
+        behind = max(latest(i) for i in others)
+        wait_rounds(behind, [victim])
+        walls["restart_catch_up_s"] = time.perf_counter() - t0
+        out["restart"] = {"down_rounds": list(range(DAEMON_LIVE + 1,
+                                                    head + 1)),
+                          "ready_s": restart_ready_s,
+                          "caught_up_to": behind}
+        # every round, the missed ones too, on the restarted daemon
+        for r in range(1, behind + 1):
+            sig = read_round(r, everyone)
+            if beacons.setdefault(r, sig) != sig:
+                die(f"round {r} changed after the restart", victim)
+        # then live rounds, until the restarted daemon has stored one
+        # through its own aggregation (a partials check of its own): a
+        # round it still gets from a peer's SyncChain does not count
+        r = behind
+        while True:
+            r += 1
+            seen = wait_rounds(r, everyone)
+            round_walls[r] = max(seen.values()) - scheduled(r)
+            beacons[r] = read_round(r, everyone)
+            own = sum(_series(scrape(victim), "beacon_partial_checks_total"))
+            if r - behind >= DAEMON_AFTER and own:
+                break
+            if r - behind >= DAEMON_AFTER + 4:
+                die(f"the restarted daemon checked no partials of its own "
+                    f"in {r - behind} rounds after its catch-up", victim)
+        last = r
+        out["restart"]["rounds_to_own_check"] = r - behind
+
+        # -- every round verified here, on the card, against the key
+        rounds = sorted(beacons)
+        verdicts = drive("daemon_rounds", lambda: B.BatchBeaconVerifier(
+            sch, pk).verify_batch(rounds, [beacons[r] for r in rounds]))
+        out["rounds_verified_on_card"] = {
+            "rounds": len(rounds), "all_true": bool(verdicts.all())}
+        if not verdicts.all():
+            die(f"rounds not verified against the collective key: "
+                f"{[r for r, v in zip(rounds, verdicts.tolist()) if not v]}")
+
+        # -- a strict client over gRPC (client/verify.py over
+        # GrpcTransport): get(r) for every round from 1.  Quicknet is
+        # unchained, so the strict client has no linkage to walk and no
+        # sweep: it checks each get on its own, on the service's host
+        # handle (a card sweep is for chained spans of 64 rounds or more).
+        # Then its watch() yields the next round.
+        svc = VS.get_service()
+        client = VerifyingClient(GrpcTransport(addrs[0]), strict=True)
+        st0 = svc.stats()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = [client.get(r) for r in range(1, last + 1)]
+        walls["client_gets_s"] = time.perf_counter() - t0
+        st = svc.stats()
+        gets = {"rounds": len(got), "chained": sch.chained,
+                "rounds_right": all(
+                    g.round == r and g.randomness ==
+                    hashlib.sha256(beacons[r]).digest()
+                    for r, g in zip(range(1, last + 1), got)),
+                "dispatches": st["dispatches"] - st0["dispatches"],
+                "host_served": st["host_served"] - st0["host_served"],
+                "launches": sum(K.LAUNCHES.values())}
+        client.close()
+        client = VerifyingClient(GrpcTransport(addrs[1]), strict=True)
+        stop = threading.Event()
+        t0 = time.perf_counter()
+        nxt = next(client.watch(stop))
+        stop.set()
+        gets["watch"] = {"round": nxt.round,
+                         "after_s": time.perf_counter() - t0}
+        wait_rounds(nxt.round, everyone)
+        gets["watch"]["randomness_equal"] = nxt.randomness == \
+            hashlib.sha256(read_round(nxt.round, everyone)).digest()
+        client.close()
+        out["strict_client"] = gets
+        if not gets["rounds_right"] or nxt.round <= last \
+                or not gets["watch"]["randomness_equal"]:
+            die(f"the strict client over gRPC: {gets}")
+
+        # -- each daemon's metrics: the group registry over the Protocol
+        # plane (what a federating peer sees), the verify service's own
+        # series from the daemon's MetricsServer
+        checks_ms, per = [], {}
+        for i in everyone:
+            m = scrape(i, want=("beacon_partial_checks_total",
+                                "beacon_partial_check_errors_total",
+                                "beacon_partial_check_seconds",
+                                "beacon_partial_check_seconds_max"))
+            m.update(scrape(i, private=True, want=(
+                "verify_service_failovers_total",
+                "verify_service_watchdog_trips_total",
+                "verify_service_host_served_total",
+                "verify_service_dispatches_total")))
+            per[i] = {
+                "partial_checks_device":
+                    sum(_series(m, "beacon_partial_checks_total",
+                                backend="device")),
+                "partial_checks_host":
+                    sum(_series(m, "beacon_partial_checks_total",
+                                backend="host")),
+                "partial_check_errors":
+                    sum(_series(m, "beacon_partial_check_errors_total")),
+                "failovers": sum(_series(m, "verify_service_failovers_total")),
+                "watchdog_trips":
+                    sum(_series(m, "verify_service_watchdog_trips_total")),
+                "host_served":
+                    sum(_series(m, "verify_service_host_served_total")),
+                "background_dispatches":
+                    sum(_series(m, "verify_service_dispatches_total",
+                                lane="background")),
+                "check_p50_le_s":
+                    _hist_quantile(m, "beacon_partial_check_seconds", 0.5),
+                "check_max_s":
+                    max(_series(m, "beacon_partial_check_seconds_max"),
+                        default=None)}
+            n_checks = sum(_series(m, "beacon_partial_check_seconds_count"))
+            mean = sum(_series(m, "beacon_partial_check_seconds_sum")) / \
+                max(1.0, n_checks)
+            per[i]["check_mean_s"] = mean
+            checks_ms.append(per[i]["check_max_s"] or 0.0)
+            if per[i]["partial_checks_device"] < 1 \
+                    or per[i]["partial_checks_host"] \
+                    or per[i]["partial_check_errors"] \
+                    or per[i]["failovers"] or per[i]["watchdog_trips"] \
+                    or per[i]["host_served"]:
+                die(f"daemon {i}'s metrics: {per[i]}", i)
+        if per[victim]["background_dispatches"] < 1:
+            die(f"the restarted daemon verified no catch-up on its "
+                f"BACKGROUND lane: {per[victim]}", victim)
+        out["metrics"] = per
+
+        # -- in this process: the daemons' (1, 4) partials check of one
+        # stored round, from the shares in their key folders
+        shares = [FileStore(f, "default").load_share() for f in folders]
+        msg = sch.digest_beacon(DAEMON_CHECK_ROUND)
+        parts = [HT.sign_partial(sch, s.private, msg) for s in shares]
+        pub = group.public_key.pub_poly(sch)
+        pv = DevicePartialVerifier(sch, pub, DAEMON_N)
+        t0 = time.perf_counter()
+        ok = drive("daemon_check", lambda: pv.verify(msg, parts))
+        check_s = time.perf_counter() - t0
+        sig = HT.recover(sch, pub, msg, parts[:DAEMON_T], DAEMON_T,
+                         DAEMON_N, verify_each=False)
+        out["check"] = {"round": DAEMON_CHECK_ROUND, "verdicts": list(ok),
+                        "wall_s": check_s,
+                        "recovered_equals_stored":
+                            sig == beacons[DAEMON_CHECK_ROUND]}
+        if not all(ok) or sig != beacons[DAEMON_CHECK_ROUND]:
+            die(f"the in-process (1, {DAEMON_N}) check: {out['check']}")
+
+        # -- every daemon shut down over Control, each exiting 0
+        for i in everyone:
+            cc = ControlClient(ready[i]["control"])
+            down.add(i)
+            cc.stub.shutdown(pb.ShutdownRequest(
+                metadata=convert.metadata()), timeout=30)
+            cc.close()
+        for i in everyone:
+            try:
+                rc = procs[i].wait(timeout=DAEMON_WAIT_S)
+            except subprocess.TimeoutExpired:
+                die(f"daemon {i} did not exit after its shutdown", i)
+            if rc != 0:
+                die(f"daemon {i} exited with {rc}", i)
+    except SystemExit:
+        raise
+    except BaseException as e:      # noqa: BLE001 — a check that raised
+        import traceback
+        traceback.print_exc()
+        die(f"{type(e).__name__}: {e}")
+    pc.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    rw = sorted(round_walls.values())
+    p50 = [v for v in (per[i]["check_p50_le_s"] for i in everyone) if v]
+    walls.update({"round_p50_s": rw[len(rw) // 2], "round_max_s": rw[-1],
+                  "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "daemon_quicknet", "scheme": sch.id, "daemons": DAEMON_N,
+          "threshold": DAEMON_T, "period_s": DAEMON_PERIOD,
+          "store": "sqlite", "transport": "gRPC on localhost",
+          "walls": walls, "round_walls_s": round_walls,
+          "partial_check_p50_le_s": max(p50) if p50 else None,
+          "partial_check_max_s": max(checks_ms), **out,
+          "launches": {p: v[0] for p, v in paths.items()},
+          "device": name, "nvidia_smi": smi_line})
     return {"paths": paths, "walls": walls}
 
 
@@ -2946,6 +3512,11 @@ def main():
                                 edge_chain=edge_chain))
     assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
 
+    # -- phase daemon: four daemons of the port over real gRPC -------------
+    daemon = daemon_phases(dict(torch=torch, K=K, B=B, schemes=schemes,
+                                HT=HT, name=name, smi_line=smi_line))
+    assert "jax" not in sys.modules and "drand_tpu" not in sys.modules
+
     # -- phase 4: each kernel against its plain version at the path's shapes
     def timed(fn, reps):
         fn()
@@ -3305,8 +3876,10 @@ def main():
     ran.update(dkg["paths"])
     ran.update(beacon["paths"])
     ran.update(edge_run["paths"])
+    ran.update(daemon["paths"])
     groups = {"dkg": set(dkg["paths"]), "beacon": set(beacon["paths"]),
-              "edge": set(edge_run["paths"])}
+              "edge": set(edge_run["paths"]),
+              "daemon": set(daemon["paths"])}
 
     # Every other shape a path launched (the threshold paths' widths, and
     # all of K6) gets inputs made here: random field elements, the points
@@ -3687,7 +4260,10 @@ def main():
                          f"edge phase's strict walks ({EDGE_ROUNDS} chained "
                          f"rounds through the process-default service: "
                          f"one client, {EDGE_CLIENTS} at once, a forged "
-                         f"pair)",
+                         f"pair), and the daemon phase's in-process paths "
+                         f"(its rounds verified and the "
+                         f"(1, {DAEMON_N}) partials check; the daemons' "
+                         f"own launches are in their processes)",
             "per_shape": detail,
             "ptxas": entry_stats(regs, src, *needles),
             "group": group_layout.get(kname),

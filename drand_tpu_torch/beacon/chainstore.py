@@ -19,11 +19,14 @@ partials.  The port wires that check with no host fallback
 (`node.device_verifier_factory`), so a check that raises is counted in
 `beacon_partial_check_errors_total` and logged here; the reference
 aggregator drops it unseen, its host fallback having redone the check.
+Each check that returns is counted by its backend
+(`beacon_partial_checks_total`) and timed (`beacon_partial_check_seconds`).
 """
 
 import logging
 import queue
 import threading
+import time
 
 from ..common import make_condition
 from typing import Callable, Optional
@@ -252,8 +255,10 @@ class ChainStore:
         # same signer index from being verified and used.
         unchecked = [p for p in rc.partials.values() if p not in rc.checked]
         if unchecked:
+            t0 = time.monotonic()
             try:
                 results = self.partial_verifier.verify(msg, unchecked)
+                self._count_check(time.monotonic() - t0)
             except Exception:   # noqa: BLE001 — counted, logged, retried
                 # nothing redoes the check on the host: the round waits
                 # for its next partial, which checks the cache again
@@ -292,6 +297,18 @@ class ChainStore:
             return
         beacon = Beacon(round=round_, signature=sig, previous_sig=prev_sig)
         self._try_append(last, beacon)
+
+    def _count_check(self, wall: float) -> None:
+        """The check's backend and wall in the "group" registry, so a
+        peer's federated scrape shows where its partials were checked."""
+        from ..metrics import (partial_check_seconds,
+                               partial_check_seconds_max, partial_checks)
+        backend = getattr(self.partial_verifier, "kind", "host")
+        partial_checks.labels(self.beacon_id, backend).inc()
+        partial_check_seconds.labels(self.beacon_id).observe(wall)
+        peak = partial_check_seconds_max.labels(self.beacon_id)
+        if wall > peak.value:
+            peak.set(wall)
 
     def _try_append(self, last: Beacon, beacon: Beacon) -> None:
         if last.round + 1 < beacon.round:

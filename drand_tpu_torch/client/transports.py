@@ -1,8 +1,9 @@
-"""Client transports: REST/HTTP (client/http/http.go:35-396).
+"""Client transports: gRPC (client/grpc/client.go:24-146) and REST/HTTP
+(client/http/http.go:35-396).
 
-The port's copy of drand_tpu/client/transports.py without its gRPC
-transport (client/grpc/client.go:24-146), which waits for the port's
-net/client.py; `HttpTransport` is unchanged.
+The port's copy of drand_tpu/client/transports.py.  `GrpcTransport` imports
+the gRPC plane (net/client.py, net/convert.py) when it is built rather
+than at module import, so the REST client runs where grpc is absent.
 """
 
 import json
@@ -14,6 +15,40 @@ from ..chain.beacon import Beacon
 from ..chain.info import Info
 from ..metrics import client_http_heartbeat, registered_label
 from .interface import Client, Result
+
+
+class GrpcTransport(Client):
+    """`client.Client` over the Public gRPC service."""
+
+    def __init__(self, address: str, beacon_id: str = "", tls: bool = False,
+                 client=None):
+        from ..net import Peer, ProtocolClient, convert
+        self._convert = convert
+        self.peer = Peer(address, tls)
+        self.beacon_id = beacon_id
+        self.client = client or ProtocolClient()
+        self._own_client = client is None
+
+    def get(self, round_: int = 0) -> Result:
+        resp = self.client.public_rand(self.peer, round_, self.beacon_id)
+        return Result.from_beacon(self._convert.rand_to_beacon(resp))
+
+    def watch(self, stop: Optional[threading.Event] = None
+              ) -> Iterator[Result]:
+        stop = stop or threading.Event()
+        for resp in self.client.public_rand_stream(self.peer, 0,
+                                                   self.beacon_id):
+            if stop.is_set():
+                return
+            yield Result.from_beacon(self._convert.rand_to_beacon(resp))
+
+    def info(self) -> Info:
+        return self._convert.proto_to_info(
+            self.client.chain_info(self.peer, self.beacon_id))
+
+    def close(self) -> None:
+        if self._own_client:
+            self.client.close()
 
 
 class HttpTransport(Client):

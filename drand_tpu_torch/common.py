@@ -9,6 +9,7 @@ is the stock primitive.
 import threading
 
 DEFAULT_BEACON_ID = "default"
+MULTI_BEACON_FOLDER = "multibeacon"
 
 
 def is_default_beacon_id(beacon_id: str) -> bool:

@@ -1,7 +1,24 @@
-"""The daemon's core (the port's counterpart of drand_tpu/core/).
+"""L6 daemon orchestration (the port's copy of drand_tpu/core/; reference:
+core/, SURVEY.md §2.7).
 
-Only the tenant-token authority (`authz.py`) is ported so far: the REST
-edge checks bearer tokens with it.  The reference package's
-``__init__`` exports the daemon, which imports grpc; the port's exports
-nothing of the daemon until the daemon itself is ported.
+The exports load on first use (a module ``__getattr__``): the REST edge
+imports `core.authz` and must run where grpc is absent, and the daemon
+imports grpc.
 """
+
+import importlib
+
+_EXPORTS = {"BeaconProcess": "beacon_process", "Config": "config",
+            "default_config_folder": "config", "DrandDaemon": "daemon",
+            "TenantConfig": "tenancy", "TenantRegistry": "tenancy"}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = value
+    return value

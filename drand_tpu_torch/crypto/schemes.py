@@ -136,3 +136,8 @@ def scheme_from_name(name: str) -> Scheme:
 def get_scheme_by_id_with_default(id_: str = "") -> Scheme:
     """The scheme of a group file's SchemeID; "" is the default chain's."""
     return scheme_from_name(id_ or DEFAULT_SCHEME_ID)
+
+
+def list_schemes():
+    """The scheme ids, in the reference's order (Control ListSchemes)."""
+    return list(_SCHEMES)

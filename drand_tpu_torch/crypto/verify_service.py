@@ -1929,8 +1929,10 @@ class VerifyService:
                 pass        # accounting must never cost the dispatch
 
     def _note_host_served(self) -> None:
+        from ..metrics import verify_host_served
         with self._cond:
             self._host_served += 1
+        verify_host_served.inc()
 
     def _account_pack(self, lane: str, elapsed: float) -> None:
         """The pack third of the pack|queue|device latency split: host

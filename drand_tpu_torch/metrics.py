@@ -1,7 +1,9 @@
 """The port's metrics, kept in process, with no prometheus_client.
 
 The port's counterpart of the series of drand_tpu/metrics.py that its
-modules touch: the ``verify_*`` series (the resident verify service, its
+modules touch: the daemon's group series (``last_beacon_round``,
+``group_size``, the DKG and reshare states, ``error_sending_partial``) and
+its ``drand_node_db`` / restart series, the ``verify_*`` series (the resident verify service, its
 failure domain and the device pool), the serving plane's ``admission_*``
 series and ``identity_rejections_total`` in the "private" registry, the
 resilience (``resilience_*``) and chain-integrity (``chain_integrity_*``)
@@ -16,11 +18,22 @@ here are plain objects with the client's spelling (``.labels(...)``, then
 ``.inc()`` / ``.set()`` / ``.observe()``; ``.remove(...)`` raises KeyError
 for an absent child) and ``scrape()`` writes the Prometheus text format.
 Nothing is registered in prometheus_client's default registry, so a process
-that loads both packages never registers a series twice.
+that loads both packages never registers a series twice.  ``MetricsServer``
+and ``ThresholdMonitor`` are the reference's, over these registries.
+
+Series the reference lacks, for the port's device seam: the aggregator's
+partial checks by backend (``beacon_partial_checks_total``), their wall
+(``beacon_partial_check_seconds``, ``beacon_partial_check_seconds_max``),
+the checks that raised (``beacon_partial_check_errors_total``), all in the
+"group" registry, and the verify service's host-served work
+(``verify_service_host_served_total``).
 """
 
 import math
 import threading
+from typing import Callable, Dict, Optional
+
+from .log import Logger
 
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75,
                    1.0, 2.5, 5.0, 7.5, 10.0, math.inf)
@@ -207,6 +220,11 @@ def scrape(which: str = "private") -> bytes:
         raise ValueError(f"unknown registry {which!r}") from None
 
 
+def scrape_all() -> bytes:
+    return b"".join(_REGISTRIES[w].scrape()
+                    for w in ("private", "http", "group", "client"))
+
+
 # -- label cardinality control (drand_tpu/metrics.py registered_label):
 # naturally unbounded values (peer addresses) pass through
 # registered_label(), which admits the first `limit` distinct values of a
@@ -232,6 +250,94 @@ def registered_label(value, known=None, ns: str = "default",
             return v
     return fallback
 
+
+# The daemon (core/): the reference's group series (metrics.go:83-88).
+beacon_discrepancy_latency = Gauge(
+    "beacon_discrepancy_latency",
+    "Difference between the expected round time and the storage time (ms)",
+    ["beacon_id"], registry=GROUP)
+last_beacon_round = Gauge(
+    "last_beacon_round", "Last locally stored beacon round",
+    ["beacon_id"], registry=GROUP)
+group_size = Gauge(
+    "group_size", "Number of nodes in the group", ["beacon_id"],
+    registry=GROUP)
+group_threshold = Gauge(
+    "group_threshold", "Threshold of the group", ["beacon_id"],
+    registry=GROUP)
+dkg_state = Gauge(
+    "dkg_state", "DKG state (0 not started .. 4 done)", ["beacon_id"],
+    registry=GROUP)
+dkg_state_timestamp = Gauge(
+    "dkg_state_timestamp", "When the DKG state last changed", ["beacon_id"],
+    registry=GROUP)
+reshare_state = Gauge(
+    "reshare_state", "Reshare state", ["beacon_id"], registry=GROUP)
+reshare_state_timestamp = Gauge(
+    "reshare_state_timestamp", "When the reshare state last changed",
+    ["beacon_id"], registry=GROUP)
+drand_node_db = Gauge(
+    "drand_node_db", "Storage engine in use", ["db"])
+# restart observability: the gauge is this process's start stamp; the
+# counter is seeded from the persisted restarts.json in the beacon folder
+daemon_start_time_seconds = Gauge(
+    "daemon_start_time_seconds", "Unix time this daemon process started")
+daemon_restarts_total = Counter(
+    "daemon_restarts_total",
+    "Daemon starts beyond the first against this beacon folder "
+    "(persisted across processes in <folder>/restarts.json)")
+error_sending_partial = Counter(
+    "error_sending_partial", "Failed partial beacon sends",
+    ["beacon_id", "address"], registry=GROUP)
+# DKG/reshare lifecycle (core/dkg_journal.py): session outcomes, the live
+# session's phase, and whether a reshare output sits staged on disk.
+dkg_sessions = Counter(
+    "dkg_sessions_total",
+    "DKG/reshare sessions by outcome",
+    ["beacon_id", "kind", "result"], registry=GROUP)
+dkg_phase_gauge = Gauge(
+    "dkg_phase",
+    "Live DKG session phase (0 idle, 1 setup, 2 deal, 3 response, "
+    "4 justification, 5 adopt)",
+    ["beacon_id"], registry=GROUP)
+reshare_transition_pending = Gauge(
+    "reshare_transition_pending",
+    "1 while a reshare output is staged on disk awaiting its transition "
+    "round (the pending-transition ledger is non-empty)",
+    ["beacon_id"], registry=GROUP)
+# Multi-tenant serving (core/tenancy.py).
+tenant_requests = Counter(
+    "tenant_requests_total",
+    "Admission decisions attributed to a tenant",
+    ["tenant", "decision"])
+tenant_device_seconds = Counter(
+    "tenant_device_seconds_total",
+    "Verify-service device seconds attributed to a tenant (measured off "
+    "the pack|queue|device latency split)",
+    ["tenant"])
+tenant_quota_level = Gauge(
+    "tenant_quota_level",
+    "Device-time quota level per tenant (used/allowed over the rolling "
+    "window; >= 1 is over quota)",
+    ["tenant"])
+# The mTLS plane (net/identity.py) and the token authority (core/authz.py).
+identity_cert_state = Gauge(
+    "identity_cert_state",
+    "Local mTLS cert expiry state (0 fresh, 1 grace, 2 expired; grace "
+    "and expired both keep serving — rotation is overdue, not fatal)")
+identity_cert_reloads = Counter(
+    "identity_cert_reloads_total",
+    "Cert-dir hot reloads by result (ok | error)",
+    ["result"])
+authz_tokens = Counter(
+    "authz_tokens_total",
+    "Tenant-token lifecycle events (minted | revoked)",
+    ["event"])
+# Integrity-scan resumability (chain/integrity.py ScanCheckpoint).
+integrity_scan_resumed_from = Gauge(
+    "chain_integrity_scan_resumed_from",
+    "Round the latest integrity scan resumed from (0 = full rescan)",
+    ["beacon_id"], registry=GROUP)
 
 # Resident verify service (crypto/verify_service.py): every verify consumer
 # submits through one pipeline; these series answer "is coalescing working"
@@ -294,6 +400,10 @@ verify_watchdog_trips = Counter(
     "verify_service_watchdog_trips_total",
     "Device dispatches abandoned after blowing their watchdog deadline",
     ["chain"])
+verify_host_served = Counter(
+    "verify_service_host_served_total",
+    "Chunks and aggregation-time partial checks a host backend served "
+    "(a host handle, a failover's fallback, a host partial verifier)")
 verify_probe_latency = Histogram(
     "verify_service_probe_latency_seconds",
     "Canary probe dispatch latency on a degraded device backend",
@@ -343,6 +453,20 @@ integrity_promoted = Counter(
 # The aggregator (beacon/chainstore.py): partial checks that raised.  The
 # port wires the device check with no host fallback, so this is where a
 # broken card shows.
+partial_checks = Counter(
+    "beacon_partial_checks_total",
+    "Aggregation-time partial checks by the backend that ran them "
+    "(device | host)", ["beacon_id", "backend"], registry=GROUP)
+partial_check_seconds = Histogram(
+    "beacon_partial_check_seconds",
+    "Wall of one aggregation-time partial check (queue and run)",
+    ["beacon_id"],
+    buckets=(0.01, 0.025, 0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.8, 1.0,
+             1.5, 2.0, 3.0, 5.0, 10.0), registry=GROUP)
+partial_check_seconds_max = Gauge(
+    "beacon_partial_check_seconds_max",
+    "Longest aggregation-time partial check so far", ["beacon_id"],
+    registry=GROUP)
 partial_check_errors = Counter(
     "beacon_partial_check_errors_total",
     "Aggregation-time partial checks that raised (the round waits for its "
@@ -387,3 +511,136 @@ identity_rejections = Counter(
     "Authentication rejections by surface (grpc | rest | handel) and "
     "reason (token REASON_* values, or impersonation)",
     ["surface", "reason"])
+
+
+class ThresholdMonitor:
+    """Escalating alerts when partial-send failures approach the threshold
+    (metrics/threshold_monitor.go:12-105)."""
+
+    def __init__(self, beacon_id: str, log: Logger, threshold: int,
+                 period: float = 60.0):
+        self.beacon_id = beacon_id
+        self.log = log
+        self.threshold = threshold
+        self.period = period
+        self._failed: Dict[str, bool] = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name=f"thr-mon-{self.beacon_id}")
+            self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.period):
+            with self._lock:
+                failing = sorted(self._failed)
+                self._failed = {}
+                thr = self.threshold
+            if len(failing) >= thr:
+                self.log.error("failed connections crossed threshold in the "
+                               "last minute", threshold=thr,
+                               failures=len(failing), nodes=",".join(failing))
+            elif len(failing) >= thr // 2:
+                self.log.warn("failed connections crossed half threshold in "
+                              "the last minute", threshold=thr,
+                              failures=len(failing), nodes=",".join(failing))
+
+    def report_failure(self, addr: str) -> None:
+        error_sending_partial.labels(
+            self.beacon_id,
+            registered_label(addr, ns="peer-address", limit=256)).inc()
+        with self._lock:
+            self._failed[addr] = True
+
+    def update_threshold(self, new_threshold: int) -> None:
+        with self._lock:
+            self.threshold = new_threshold
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2)
+            self._thread = None
+
+
+class MetricsServer:
+    """Plain-HTTP metrics endpoint with profiling and peer federation
+    (metrics.go:365-399).
+
+    Routes: `/metrics` (all registries), `/metrics/<registry>`,
+    `/debug/gc` (manual GC trigger, metrics.go:390-393), `/debug/pprof`
+    (thread stack dump — Python's nearest pprof analogue), and
+    `/peer/<addr>/metrics` when a peer-handler is installed."""
+
+    def __init__(self, port: int, host: str = "127.0.0.1",
+                 peer_metrics: Optional[Callable[[str], bytes]] = None):
+        import http.server
+
+        self.peer_metrics = peer_metrics
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                try:
+                    body, ctype = outer._route(self.path)
+                except KeyError:
+                    self.send_error(404)
+                    return
+                except Exception as e:   # peer unreachable etc.
+                    self.send_error(502, explain=str(e))
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.httpd = http.server.ThreadingHTTPServer((host, port), Handler)
+        self.port = self.httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    def _route(self, path: str):
+        text = "text/plain; version=0.0.4"
+        if path == "/metrics":
+            return scrape_all(), text
+        if path.startswith("/metrics/"):
+            try:
+                return scrape(path.split("/", 2)[2]), text
+            except ValueError:
+                raise KeyError(path) from None
+        if path == "/debug/gc":
+            import gc
+            gc.collect()
+            return b"GC run\n", "text/plain"
+        if path == "/debug/pprof":
+            import sys
+            import traceback
+            frames = sys._current_frames()
+            out = []
+            for tid, frame in frames.items():
+                out.append(f"Thread {tid}:\n"
+                           + "".join(traceback.format_stack(frame)))
+            return "\n".join(out).encode(), "text/plain"
+        if path.startswith("/peer/") and path.endswith("/metrics") \
+                and self.peer_metrics is not None:
+            addr = path[len("/peer/"):-len("/metrics")]
+            return self.peer_metrics(addr), text
+        raise KeyError(path)
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True, name="metrics-http")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=2)
+            self._thread = None

@@ -9,7 +9,10 @@ caller asks for the CPU: without a GPU it raises instead of carrying on.
 The public edge (the REST server, the client, the relays, admission
 control) runs where grpc is absent: no edge module imports grpc or
 google.protobuf at module import, and a fresh interpreter in which both
-are unimportable serves one REST get and one verified client get.
+are unimportable serves one REST get and one verified client get.  The
+daemon's gRPC plane (``GRPC_PLANE`` below) imports grpc at module top, as
+the reference's does; a fresh interpreter that imports the daemon and its
+CLI holds neither jax nor drand_tpu.
 """
 
 import ast
@@ -89,12 +92,17 @@ def test_entry_point_defaults_to_cuda_and_raises_without_gpu(monkeypatch):
 
 EDGE = ["http_server.py", "relay.py", "s3.py", "log.py", "fs.py",
         "client", "net", "core"]
+# the daemon's gRPC plane: `import grpc` at module top, as in the reference
+GRPC_PLANE = {"net/rpc.py", "net/client.py", "net/identity.py",
+              "net/listener.py", "core/daemon.py"}
 
 
 def _edge_files():
     for name in EDGE:
         p = PKG / name
-        yield from (sorted(p.rglob("*.py")) if p.is_dir() else [p])
+        for f in (sorted(p.rglob("*.py")) if p.is_dir() else [p]):
+            if str(f.relative_to(PKG)) not in GRPC_PLANE:
+                yield f
 
 
 def _module_level_imports(path):
@@ -166,3 +174,34 @@ def test_edge_serves_and_verifies_without_grpc():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"rest": True, "client": True, "bad": []}
+
+
+_DAEMON_CHILD = r"""
+import json, sys
+import drand_tpu_torch.cli
+import drand_tpu_torch.core.daemon
+from drand_tpu_torch.core import DrandDaemon
+from drand_tpu_torch.net import ProtocolClient
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "drand_tpu"
+             or m.startswith("drand_tpu."))
+print(json.dumps({"grpc": "grpc" in sys.modules, "bad": bad}))
+"""
+
+
+def test_daemon_and_cli_import_leaves_jax_out():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _DAEMON_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"grpc": True, "bad": []}
+
+
+def test_grpc_plane_is_exactly_the_modules_importing_grpc():
+    """Only the gRPC plane's modules import grpc at module top."""
+    found = {str(p.relative_to(PKG)) for p in sorted(PKG.rglob("*.py"))
+             if any(m.split(".")[0] == "grpc"
+                    for m in _module_level_imports(p))}
+    assert found == GRPC_PLANE
